@@ -31,9 +31,13 @@ setup(
     ),
     packages=find_packages(exclude=["tests"]),
     cmdclass={"build_py": BuildWithNative},
-    package_data={"mustache_tpu.io.native": ["*.so", "*.cpp", "Makefile"]},
+    package_data={"mustache_tpu.io.native": ["*.so", "*.cpp", "Makefile"],
+                  "mustache_tpu_torch.kernels": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pandas", "h5py"],
+    # the PyTorch/CUDA port (mustache_tpu_torch); its kernels build with
+    # nvcc at first use
+    extras_require={"torch": ["torch"]},
     entry_points={
         "console_scripts": [
             "mustache-tpu = mustache_tpu.cli:main",
