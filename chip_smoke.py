@@ -6,17 +6,23 @@
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the fused ladder/DoG/NMS kernel from csrc/ with nvcc;
+2. build the fused ladder/DoG/NMS kernel from csrc/ with nvcc and print
+   ptxas's report for it (registers, shared memory, spills);
 3. kernel vs its plain PyTorch version on the card, on sentinel-filled
    synthetic blocks at both main-path block shapes (N=2000/DB=512 at 5 kb,
-   N=4000/DB=2048 at 1 kb), B=4 with a pad slot in the middle: band_sig
+   N=4000/DB=2048 at 1 kb), and at the 5 kb shape with a 3-octave ladder
+   (radii up to 28: the kernel's path for sigmas of more than 32 taps),
+   B=4 with a pad slot in the middle: band_sig
    equal on the support (a mismatch must be an f32 near-tie and sit on no
    significant candidate), band_v / locs / sums within rtol 2e-4, the pad
-   slot empty; both timed with CUDA events;
+   slot empty, a second launch bit-identical; kernel, plain version and
+   cuDNN's two-pass blur of the same blocks (blur only: no PyTorch call
+   computes the fused function) timed with CUDA events; the kernel held
+   against its FP32 bound from the FLOP the algorithm needs;
 4. end to end: the bench headline workload (synthetic chr21 at 5 kb,
-   6 blocks of 2000^2) through ``detect_loops_coo(device="cuda")`` and
-   ``write_loops``; the kernel must have launched, and the loop rows must
-   equal the JAX package's CPU golden
+   6 blocks of 2000^2) through ``detect_loops_coo`` with no device given
+   (the card by default) and ``write_loops``; the kernel must have
+   launched, and the loop rows must equal the JAX package's CPU golden
    (tests/data/torch_port_chr21_5kb_golden.tsv, tools/make_torch_golden.py):
    anchors and scales exact, q within rtol 2e-4, the only allowed
    difference a row whose q is within rtol 2e-4 of pt.
@@ -45,6 +51,15 @@ NEAR_TIE = 1e-5       # relative f64 margin below which f32 may decide
                       # either way (~100 f32 ulps)
 GOLDEN = os.path.join(ROOT, "tests", "data",
                       "torch_port_chr21_5kb_golden.tsv")
+FP32_FLOPS = 67e12    # H100 SXM FP32 peak outside the tensor cores (700 W)
+HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
+# (label, N, d_px, resolution, n_bins, starts, ladder octaves); slot 2 is
+# the pad slot
+SHAPES = [("5kb", 2000, 400, 5000, 5000, [0, 1000, 0, 3000], (1.6, 3.2)),
+          ("1kb", 4000, 2000, 1000, 8000, [0, 2000, 0, 4000], (1.6, 3.2)),
+          ("5kb-3oct", 2000, 400, 5000, 5000, [0, 1000, 0, 3000],
+           (1.6, 3.2, 6.4))]
+VALID = [1, 1, 0, 1]
 
 
 def fail(msg: str):
@@ -148,24 +163,63 @@ def near_tie(cs_blk: np.ndarray, i: int, j: int, spec) -> float:
     return float(np.min(margins) / scale)
 
 
-def phase_kernel_vs_plain(dev, spec, taps):
+def kernel_bound(spec, N, DB, n_real):
+    """FLOP the algorithm needs, bytes it must move, and the least time
+    the card could take for them: two separable passes over each sigma's
+    nonzero taps (2r + 1) at every band cell (sum over rows of min(DB,
+    N - i)) of every real slot, one FMA = 2 FLOP; cs and nzf read once
+    and band_v and band_sig written once over the band, 4 bytes each."""
+    from mustache_tpu_torch.scalespace import kernel_radius
+
+    taps = sum(2 * kernel_radius(s) + 1 for s in spec.blur_sigmas)
+    cells = sum(min(DB, N - i) for i in range(N)) * n_real
+    flop = 2 * 2 * taps * cells
+    nbytes = 16 * cells
+    t_ops, t_bytes = flop / FP32_FLOPS, nbytes / HBM_BYTES
+    return (flop, nbytes, 1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def blur_only(cs, taps, spec, valid):
+    """cuDNN's two-pass blur of every real block, all octaves (allow_tf32
+    off): the yardstick for the blur part alone."""
+    from mustache_tpu_torch.kernels.fused_ladder import (
+        BLURS_PER_OCTAVE, _blur_octave, _symmetric_pad,
+    )
+    N = cs.shape[-1]
+    for b in range(cs.shape[0]):
+        if valid[b]:
+            cpad = _symmetric_pad(cs[b], spec.radius)
+            for o in range(len(spec.octave_values)):
+                _blur_octave(cpad, taps[o * BLURS_PER_OCTAVE:
+                                        (o + 1) * BLURS_PER_OCTAVE], N)
+
+
+def phase_kernel_vs_plain(dev):
     from mustache_tpu_torch.detect import _detect_one, band_width
     from mustache_tpu_torch.kernels import fused_ladder as fl
+    from mustache_tpu_torch.scalespace import (
+        build_ladder, ladder_tensor, radii_tensor,
+    )
 
     report = {}
-    # (label, N, d_px, resolution, n_bins, starts); slot 2 is the pad slot
-    shapes = [("5kb", 2000, 400, 5000, 5000, [0, 1000, 0, 3000]),
-              ("1kb", 4000, 2000, 1000, 8000, [0, 2000, 0, 4000])]
-    for label, N, d_px, res, n_bins, starts in shapes:
+    for label, N, d_px, res, n_bins, starts, octaves in SHAPES:
+        spec = build_ladder(octaves)
+        taps = ladder_tensor(spec.kernels, dev)
+        radii = radii_tensor(spec.blur_sigmas, dev)
         DB = band_width(N, d_px)
         cs, nzf, slices = synthetic_blocks(dev, N, d_px, res, n_bins, starts,
                                            seed=7)
-        valid = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+        valid = torch.tensor(VALID, dtype=torch.int32, device=dev)
         kw = dict(R=spec.radius, n_octaves=len(spec.octave_values),
                   planes_per_octave=spec.planes_per_octave, DB=DB,
                   valid=valid)
-        got = fl.fused_ladder_nms_batched(cs, nzf, taps, **kw)
+        got = fl.fused_ladder_nms_batched(cs, nzf, taps, radii=radii, **kw)
+        again = fl.fused_ladder_nms_batched(cs, nzf, taps, radii=radii, **kw)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{label}: two launches differ")
+        del again
         want = fl.fused_ladder_nms_reference(cs, nzf, taps, **kw)
         torch.cuda.synchronize()
         gv, gs, gl, gsum = got
@@ -178,8 +232,8 @@ def phase_kernel_vs_plain(dev, spec, taps):
         sup = band_support(nzf * valid[:, None, None], DB)
         mism = (gs != ws) & sup
         n_mis = int(mism.sum())
-        say(f"[3] {label} N={N} DB={DB} B=4: support cells {int(sup.sum())}, "
-            f"detections {int((ws >= 0).sum())}, band_sig mismatches {n_mis}")
+        say(f"[3] {label} N={N} DB={DB} R={spec.radius} B=4: support cells "
+            f"{int(sup.sum())}, detections {int((ws >= 0).sum())}, band_sig mismatches {n_mis}")
         if int(((gs != ws) & ~sup).sum()):
             fail(f"{label}: band_sig differs off the support")
 
@@ -231,17 +285,29 @@ def phase_kernel_vs_plain(dev, spec, taps):
                 fail(f"{label}: {name} max abs err "
                      f"{float((a - w).abs().max())}")
         err = float((gv - wv).abs().max())
-        ms = cuda_ms(lambda: fl.fused_ladder_nms_batched(cs, nzf, taps, **kw),
-                     reps=5)
+        locs_err = float((gl - wl).abs().max())
+        sums_rel = float(((gsum - wsum).abs()
+                          / wsum.abs().clamp(min=1e-30)).max())
+        del got, want, gv, gs, gl, gsum, wv, ws, wl, wsum
+        ms = cuda_ms(lambda: fl.fused_ladder_nms_batched(
+            cs, nzf, taps, radii=radii, **kw), reps=10)
         plain_ms = cuda_ms(
             lambda: fl.fused_ladder_nms_reference(cs, nzf, taps, **kw), reps=2)
+        blur_ms = cuda_ms(lambda: blur_only(cs, taps, spec, VALID), reps=3)
+        flop, nbytes, bound_ms, bound_by = kernel_bound(
+            spec, N, DB, sum(VALID))
         say(f"[3] {label}: significant candidates {n_sig} equal; band_v max "
-            f"abs err {err:.3g}, locs {float((gl - wl).abs().max()):.3g}, "
-            f"sums rel {float(((gsum - wsum).abs() / wsum.abs().clamp(min=1e-30)).max()):.3g}")
-        say(f"[3] {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-            f"(B=4, one pad slot)")
-        report[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        del cs, nzf, slices, got, want
+            f"abs err {err:.3g}, locs {locs_err:.3g}, sums rel "
+            f"{sums_rel:.3g}; two launches bit-identical")
+        say(f"[3] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"cuDNN blur only {blur_ms:.3f} ms (B=4, one pad slot); "
+            f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
+            f"{bound_ms:.4f} ms ({bound_by}), share of bound "
+            f"{bound_ms / ms:.3f}, {flop / ms / 1e9:.2f} TFLOP/s")
+        report[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             blur_ms=blur_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, share=bound_ms / ms)
+        del cs, nzf, slices
         torch.cuda.empty_cache()
     return report
 
@@ -288,7 +354,7 @@ def compare_to_golden(rows, golden):
     return len(a), worst
 
 
-def phase_end_to_end(dev):
+def phase_end_to_end():
     from synthetic import synthetic_hic
     from mustache_tpu_torch import DetectionConfig, detect_loops_coo, write_loops
     from mustache_tpu_torch.kernels import fused_ladder as fl
@@ -298,16 +364,21 @@ def phase_end_to_end(dev):
     cfg = DetectionConfig(resolution=5000, distance_bp=2_000_000, pt=PT,
                           st=ST, precision="float32")
 
+    logs = []
+
     def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loops = detect_loops_coo(x, y, v, cfg, device=dev, log=say)
+        loops = detect_loops_coo(x, y, v, cfg, log=logs.append)  # the card
         torch.cuda.synchronize()
         return loops, time.perf_counter() - t0
 
     fl.LAUNCHES = 0
     loops, cold = run()
     launches = fl.LAUNCHES
+    say(f"[4] {logs[0]}")
+    if "device=cuda" not in logs[0]:
+        fail("detect_loops_coo without a device did not run on the card")
     if launches <= 0:
         fail("the main path did not launch the fused kernel")
     warm = []
@@ -346,22 +417,22 @@ def main():
 
     from mustache_tpu_torch.device import resolve_device
     from mustache_tpu_torch.kernels import build, fused_ladder
-    from mustache_tpu_torch.scalespace import build_ladder, ladder_tensor
 
     dev = resolve_device("cuda")
     t0 = time.perf_counter()
     build.load("fused_ladder", fused_ladder.bind)
     say(f"[2] built fused_ladder in {time.perf_counter() - t0:.2f} s "
         f"({build.library_path('fused_ladder').name})")
+    for ln in build.build_log("fused_ladder").splitlines():
+        if "registers" in ln or "spill" in ln or "entry function" in ln:
+            say(f"[2] {ln.strip()}")
 
-    spec = build_ladder((1.6, 3.2))
-    taps = ladder_tensor(spec.kernels, dev)
-    report = phase_kernel_vs_plain(dev, spec, taps)
-    launches = phase_end_to_end(dev)
+    report = phase_kernel_vs_plain(dev)
+    launches = phase_end_to_end()
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
-    r5 = report["5kb"]
+    r5, r1, r3 = report["5kb"], report["1kb"], report["5kb-3oct"]
     say(json.dumps({"kernels": [{
         "name": "fused_ladder_nms",
         "route": "cuda",
@@ -371,6 +442,19 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in report.values()),
         "ms": r5["ms"],
         "plain_ms": r5["plain_ms"],
+        "bound_ms": r5["bound_ms"],
+        "bound_by": r5["bound_by"],
+        "library_ms": None,
+        "share": r5["share"],
+        "cudnn_blur_only_ms": r5["blur_ms"],
+        "ms_1kb": r1["ms"],
+        "plain_ms_1kb": r1["plain_ms"],
+        "bound_ms_1kb": r1["bound_ms"],
+        "share_1kb": r1["share"],
+        "cudnn_blur_only_ms_1kb": r1["blur_ms"],
+        "ms_3oct": r3["ms"],
+        "plain_ms_3oct": r3["plain_ms"],
+        "share_3oct": r3["share"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,9 @@ import torch.nn.functional as F
 
 from mustache_tpu_torch.config import DetectionConfig
 from mustache_tpu_torch.kernels import fused_ladder
-from mustache_tpu_torch.scalespace import LadderSpec, build_ladder, ladder_tensor
+from mustache_tpu_torch.scalespace import (
+    LadderSpec, build_ladder, ladder_tensor, radii_tensor,
+)
 
 SENTINEL = 2.0        # fills the masked wedges; participates in the blurs
 LOG2 = math.log(2.0)  # log-space image of the "untested" marker q=2
@@ -307,15 +309,20 @@ def unpack_block(spec: dict, row: np.ndarray) -> dict:
     return out
 
 
+def check_precision(cfg: DetectionConfig) -> None:
+    """The port runs float32 only, on every device."""
+    if cfg.precision != "float32":
+        raise NotImplementedError(
+            f"precision={cfg.precision!r}: the port runs float32 only "
+            "(float64 is ROADMAP Queue 1, normalize.py + f64 modes)")
+
+
 def kernel_gate(cfg: DetectionConfig, device: torch.device) -> None:
     """The port's gate (the JAX ``_resolve_pallas``): f32, and on CUDA a
     ladder radius that fits the kernel's shared memory. Raises when the
     configuration cannot run; there is no other device path to fall back
     to."""
-    if cfg.precision != "float32":
-        raise NotImplementedError(
-            f"precision={cfg.precision!r}: the port runs float32 only "
-            "(float64 is ROADMAP Queue 1, normalize.py + f64 modes)")
+    check_precision(cfg)
     if device.type == "cuda":
         if cfg.use_pallas == "off":
             raise NotImplementedError(
@@ -339,6 +346,7 @@ class BlockDetector:
     n: int
     K: int
     taps: torch.Tensor       # [S, 2R+1] f32 ladder taps on the device
+    radii: torch.Tensor      # [S] int32 radius of each sigma, same device
     out_spec: dict           # _out_spec layout for unpack_block
 
     def fn_band(self, band: torch.Tensor, starts) -> dict:
@@ -356,7 +364,7 @@ class BlockDetector:
             cs, nz.to(torch.float32), self.taps, R=spec.radius,
             n_octaves=len(spec.octave_values),
             planes_per_octave=spec.planes_per_octave,
-            DB=band_width(n, d_px), valid=valid)
+            DB=band_width(n, d_px), valid=valid, radii=self.radii)
         del cs, nz
         st = float(np.float32(cfg.st))
         log_pt = float(np.float32(math.log(cfg.pt)))
@@ -383,6 +391,7 @@ def build_detector(cfg: DetectionConfig, n: int, *, device,
             n * band_width(n, cfg.distance_px))
     return BlockDetector(cfg=cfg, spec=spec, n=n, K=K,
                          taps=ladder_tensor(spec.kernels, device),
+                         radii=radii_tensor(spec.blur_sigmas, device),
                          out_spec=_out_spec(out_shapes(K)))
 
 

@@ -1,9 +1,11 @@
 """Device resolution for the port.
 
-A CUDA request on a host without a CUDA device raises; nothing here ever
-picks the CPU in its place. Resolving a CUDA device also turns TF32 off
-for cuDNN convolutions and cuBLAS matmuls: the JAX package runs every
-blur at ``Precision.HIGHEST``, and PyTorch's cuDNN default
+The port runs on the card: no device (None) means "cuda", and the CPU
+runs only when asked for by name. A CUDA request on a host without a
+CUDA device raises; nothing here ever picks the CPU in its place.
+Resolving a CUDA device also turns TF32 off for cuDNN convolutions and
+cuBLAS matmuls: the JAX package runs every blur at
+``Precision.HIGHEST``, and PyTorch's cuDNN default
 (``allow_tf32=True``) would silently keep only ~3 decimal digits in the
 plain version's ``F.conv2d``.
 """
@@ -14,10 +16,10 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` ("cpu", "cuda", "cuda:1", a ``torch.device``, or None for
-    the CPU) as a ``torch.device``; raises when CUDA is asked for and not
+    """``device`` ("cuda", "cuda:1", "cpu", a ``torch.device``, or None for
+    "cuda") as a ``torch.device``; raises when CUDA is asked for and not
     present."""
-    dev = torch.device("cpu" if device is None else device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``_build/lib<name>_<hash>.so`` (hash of the source and the
 flags, so an edited source rebuilds and a stale library is never loaded),
-then loaded with ``ctypes``. Nothing here runs at import time; a missing
-``nvcc`` or a failed compile raises.
+then loaded with ``ctypes``. ptxas reports each kernel's registers,
+shared memory and spills (``-Xptxas -v``); that report is kept beside the
+library and read with :func:`build_log`. Nothing here runs at import
+time; a missing ``nvcc`` or a failed compile raises.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -62,11 +64,17 @@ def build(name: str) -> Path:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}) for {name}:\n"
                                + res.stderr[-4000:])
+        out.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (the ptxas report) from the build of ``name``."""
+    return build(name).with_suffix(".log").read_text()
 
 
 def load(name: str, bind) -> ctypes.CDLL:

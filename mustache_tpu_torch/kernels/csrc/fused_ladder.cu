@@ -3,8 +3,9 @@
 // Replaces the Pallas TPU kernel mustache_tpu/kernels/fused_ladder.py
 // ::_fused_kernel (pallas_call in fused_ladder_nms_batched). Semantics, per
 // batch slot b of sentinel-filled dense blocks cs[b] (N x N):
-//   * every Gaussian blur G_k of the ladder (12 per octave, taps zero-padded
-//     to the common radius R), scipy 'reflect' boundary;
+//   * every Gaussian blur G_k of the ladder (12 per octave; taps zero-padded
+//     to the common radius R, sigma k's own radius radii[k]), scipy
+//     'reflect' boundary;
 //   * blur values outside the matrix set to 0, so the DoG planes
 //     L_k = G_k - G_{k+1} and their 3x3 maxima see the constant-0 pad of
 //     scipy's maximum_filter;
@@ -13,29 +14,47 @@
 //   * per plane, partials over the support: min |L| and sum |L|.
 // Valid == 0 slots (batch padding) do no work and write zero partials.
 //
-// What bounds it on the H100: FP32 FMAs fed from shared memory. A 32x32
-// output tile needs its blurs on a 34x34 tile (NMS halo) and the input on a
-// (34+2R)^2 slab (conv halo), about 1.2 M FMAs per tile for the default
-// two-octave ladder (R = 14) after skipping each sigma's zero taps, against
-// ~15 KB of input read once from device memory. So the kernel is
-// compute-bound and its inner loops are shared-memory load + FMA.
+// What bounds it on the H100: FP32 FMAs. The ladder (1.6, 3.2) has 392
+// nonzero taps over its 24 sigmas, so two separable passes cost 784 FMA per
+// band cell against 16 bytes of input read once: compute-bound, ~67 TFLOP/s
+// on the CUDA cores (no TF32: the reference blurs at Precision.HIGHEST).
 //
-// Design (first, simple version; no tensor cores, no TF32: the reference
-// runs its blurs at Precision.HIGHEST):
-//   * one 256-thread block per (batch slot, 32x32 dense tile meeting the
-//     band 0 <= j - i < DB); the TPU's staircase layout, Toeplitz matrices
-//     and 128-lane partial packing are not carried over;
-//   * the reflected input slab is loaded to shared memory once, then per
-//     sigma a row pass (slab -> tmp) and a column pass (tmp -> 34x34 blur)
-//     over only that sigma's nonzero taps (adding a zero tap is exact, so
-//     skipping it changes no result);
-//   * each thread owns 4 cells of the 32x32 tile and keeps their rolling
-//     Lp/Lc and 3x3 maxima plus best_v/best_sig in registers; maxima are
-//     taken from the same stored DoG values, so Lc == mC is exact;
-//   * partials are reduced in the block in a fixed order (no float atomics)
-//     and written per tile; the wrapper reduces over tiles with amin / sum;
-//   * band outputs are written directly as band[b, i, j - i]; the wrapper
-//     pre-fills the cells no tile covers (j >= N) with 0 / -1.
+// Design:
+//   * one 256-thread block per (batch slot, 30 x 64 dense tile meeting the
+//     band 0 <= j - i < DB); tile k of row tile ti starts at column
+//     30 ti + 64 k. Its input is a (32 + 2R) x (66 + 2R) reflected slab in
+//     shared memory, loaded once with the ladder's taps and radii;
+//   * a tile without a support cell writes neutral partials and the empty
+//     state and returns (no cell there can be a detection: exact);
+//   * register blocking: in both blur passes a thread computes a strip of
+//     outputs along the tap direction (8 in the vertical pass, 10 in the
+//     horizontal one). The sigma's taps sit in registers (a template on
+//     the tap count, unrolled; 16-byte loads), each input is loaded from
+//     shared memory once and feeds every output it touches (the
+//     horizontal pass loads four inputs at a time): ~0.2 loads per FMA at
+//     the ladder's radii instead of 2. A sigma with more than 32 taps
+//     (radius > 15) runs in segments that continue the same sums. Per
+//     output the FMAs run in increasing tap order from 0, over the sigma's
+//     nonzero taps only (adding a zero tap is exact, so skipping it
+//     changes no result), as in the plain version's order of passes;
+//   * the horizontal pass maps warp s to tile columns 8 s .. 8 s + 7 and
+//     lane g to blur row g (rows -1 .. 30 of the tile), and also computes
+//     the two neighbouring columns. So each thread holds its row's blur, DoG
+//     values and horizontal 3-maxima in registers; the vertical 3-maxima
+//     come from lanes g +- 1 by shuffles. The DoG/NMS state (best_v,
+//     best_sig and the rolling planes) never leaves registers, and the 3x3
+//     maxima are taken from the same DoG values the centre test uses, so
+//     Lc == mC is exact. The vertical pass writes one of two buffers, so a
+//     sigma costs one barrier;
+//   * per-plane partials: per thread in a fixed order, per warp by a
+//     shuffle tree (the min as an integer reduction: |L| >= 0 orders as
+//     its bits do), stored per (plane, warp) and summed over warps in
+//     order once at the end of the tile (no float atomics: deterministic);
+//     the wrapper reduces over tiles with amin / sum;
+//   * every launched tile writes all of its band cells band[b, i, j - i]
+//     (the empty state (0, -1) where it computes none), staged through
+//     shared memory so that a warp writes consecutive cells; the tiles
+//     cover the band exactly, so the outputs need no pre-fill.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,13 +62,21 @@
 
 namespace {
 
-constexpr int TILE = 32;              // dense tile edge (rows and cols)
-constexpr int G = TILE + 2;           // blur tile edge: tile + NMS halo
+constexpr int TR = 30;                // output tile rows
+constexpr int TC = 64;                // output tile columns
+constexpr int GR = TR + 2;            // blur rows: tile + NMS halo
+constexpr int GC = TC + 2;            // blur columns: tile + NMS halo
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
-constexpr int CELLS = TILE * TILE / THREADS;   // 4 tile cells per thread
+constexpr int V = 8;                  // vertical pass: outputs per thread
+constexpr int CELLS = TC / NWARP;     // tile columns per warp (and thread)
+constexpr int HW = CELLS + 2;         // horizontal pass: outputs per thread
+constexpr int SEG = 32;               // taps per unrolled segment
 constexpr int BLURS = 12;             // blurs per octave
 constexpr int PLANES = BLURS - 3;     // detection planes per octave
+static_assert(GR == 32, "one blur row per lane");
+static_assert(GR / V == 4, "vertical pass: four strips of rows");
+static_assert(SEG % 4 == 0, "segments start on 16-byte tap boundaries");
 
 // numpy 'symmetric' reflection of an index into [0, n); the clamp only
 // affects slab cells that feed out-of-matrix blurs, which are zeroed
@@ -59,11 +86,130 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The L taps at w (16-byte aligned, zero-padded to a multiple of 4) into
+// registers, four per shared-memory load.
+template <int L>
+__device__ __forceinline__ void load_taps(float (&wr)[L], const float* w) {
+#pragma unroll
+  for (int t = 0; t < L; t += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(w + t);
+    wr[t] = v.x;
+    if (t + 1 < L) wr[t + 1] = v.y;
+    if (t + 2 < L) wr[t + 2] = v.z;
+    if (t + 3 < L) wr[t + 3] = v.w;
+  }
+}
+
+// Vertical pass, taps [t0, t0 + L) of the sigma (w points at tap t0):
+//   tmp[g][c] (+)= sum_t w[t] slab[g + lo + t0 + t][lo + c]
+// for g < GR and c < ncols. A unit is V consecutive g of one column; a
+// later segment continues the sums in tmp.
+template <int L>
+__device__ __forceinline__ void vpass(const float* w, const float* slab,
+                                      float* tmp, int SW, int TP, int lo,
+                                      int t0, int ncols, bool first) {
+  float wr[L];
+  load_taps(wr, w);
+  const int units = (GR / V) * ncols;
+  for (int u = threadIdx.x; u < units; u += THREADS) {
+    const int s = (u >= ncols) + (u >= 2 * ncols) + (u >= 3 * ncols);
+    const int c = u - s * ncols;
+    const float* x = slab + (s * V + lo + t0) * SW + lo + c;
+    float* out = tmp + s * V * TP + c;
+    float acc[V];
+#pragma unroll
+    for (int o = 0; o < V; ++o) acc[o] = first ? 0.f : out[o * TP];
+#pragma unroll
+    for (int q = 0; q < V + L - 1; ++q) {
+      const float xv = x[q * SW];
+#pragma unroll
+      for (int o = 0; o < V; ++o) {
+        const int t = q - o;
+        if (t >= 0 && t < L) acc[o] = fmaf(wr[t], xv, acc[o]);
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < V; ++o) out[o * TP] = acc[o];
+  }
+}
+
+// Horizontal pass, taps [t0, t0 + L): acc[o] += sum_t w[t] x[o + t], where
+// x (16-byte aligned) points at tap t0 of this thread's first output in
+// its tmp row; the inputs come four per shared-memory load.
+template <int L>
+__device__ __forceinline__ void hpass(float (&acc)[HW], const float* w,
+                                      const float* x) {
+  float wr[L];
+  load_taps(wr, w);
+  float4 v;
+#pragma unroll
+  for (int q = 0; q < HW + L - 1; ++q) {
+    if (q % 4 == 0) v = *reinterpret_cast<const float4*>(x + q);
+    const float xv = q % 4 == 0 ? v.x : q % 4 == 1 ? v.y : q % 4 == 2 ? v.z
+                                                                     : v.w;
+#pragma unroll
+    for (int o = 0; o < HW; ++o) {
+      const int t = q - o;
+      if (t >= 0 && t < L) acc[o] = fmaf(wr[t], xv, acc[o]);
+    }
+  }
+}
+
+// A sigma has 2r + 1 taps, split into segments of SEG = 32: every segment
+// but the last has 32 taps and the last an odd count, so those are the
+// only lengths the passes are instantiated for.
+static_assert(SEG == 32, "MTT_TAP_COUNTS lists the odd counts below SEG");
+#define MTT_TAP_COUNTS(X)                                                    \
+  X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(17) X(19) X(21) X(23) X(25) \
+  X(27) X(29) X(31) X(32)
+
+__device__ __forceinline__ void vpass_n(int L, const float* w,
+                                        const float* slab, float* tmp, int SW,
+                                        int TP, int lo, int t0, int ncols,
+                                        bool first) {
+  switch (L) {
+#define MTT_CASE(n) \
+  case n: vpass<n>(w, slab, tmp, SW, TP, lo, t0, ncols, first); break;
+    MTT_TAP_COUNTS(MTT_CASE)
+#undef MTT_CASE
+  }
+}
+
+__device__ __forceinline__ void hpass_n(int L, float (&acc)[HW],
+                                        const float* w, const float* x) {
+  switch (L) {
+#define MTT_CASE(n) \
+  case n: hpass<n>(acc, w, x); break;
+    MTT_TAP_COUNTS(MTT_CASE)
+#undef MTT_CASE
+  }
+}
+
+// The tile's band cells band[b, i, j - i] (0 <= j - i < DB, i < N) for
+// rows i in [r0, r0 + TR) and columns j in [c0, c0 + TC): from sv / ss
+// (row-major, pitch TC + 1) or, when they are null, the empty state
+// (0, -1). Neighbouring threads write neighbouring band cells.
+__device__ __forceinline__ void store_band(float* __restrict__ band_v,
+                                           int* __restrict__ band_sig, int b,
+                                           int N, int DB, int r0, int c0,
+                                           const float* sv, const int* ss) {
+  for (int e = threadIdx.x; e < TR * TC; e += THREADS) {
+    const int ir = e / TC, jc = e % TC;
+    const int i = r0 + ir, d = c0 + jc - i;
+    if (i < N && d >= 0 && d < DB) {
+      const size_t at = ((size_t)b * N + i) * DB + d;
+      band_v[at] = sv ? sv[ir * (TC + 1) + jc] : 0.f;
+      band_sig[at] = ss ? ss[ir * (TC + 1) + jc] : -1;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 fused_ladder_nms_kernel(const float* __restrict__ cs,
                         const float* __restrict__ nzf,
                         const int* __restrict__ valid,
                         const float* __restrict__ taps,
+                        const int* __restrict__ radii,
                         float* __restrict__ band_v,
                         int* __restrict__ band_sig,
                         float* __restrict__ parts,
@@ -71,212 +217,287 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
                         int tiles_per_row) {
   extern __shared__ float smem[];
   const int T = 2 * R + 1;
-  const int SW = G + 2 * R;                  // slab edge
   const int S = n_octaves * BLURS;
   const int P = n_octaves * PLANES;
-  float* s_taps = smem;                      // [S][T]
-  float* s_slab = s_taps + S * T;            // [SW][SW]
-  float* s_tmp = s_slab + SW * SW;           // [G][SW] row-pass output
-  float* s_gbuf = s_tmp + G * SW;            // [2][G][G] blur planes
-  float* s_L = s_gbuf + 2 * G * G;           // [G][G] DoG plane
-  float* s_red = s_L + G * G;                // [2][NWARP]
+  const int SW = GC + 2 * R;                 // slab row length (and pitch)
+  const int SR = GR + 2 * R;                 // slab rows
+  // tmp rows: 16-byte aligned, >= 4 words past the widest pass, and
+  // TP = 4 (mod 32) so that eight lanes' 16-byte loads hit distinct banks
+  const int TP = 32 * ((SW + 31) / 32) + 4;
+  const int TW = 4 * ((T + 3) / 4);          // taps per sigma, padded
+  float* s_taps = smem;                      // [S][TW] nonzero taps first
+  float* s_tmp = s_taps + S * TW;            // [2][GR][TP] vertical pass
+  float* s_slab = s_tmp + 2 * GR * TP;       // [SR][SW]
+  int* s_radii = (int*)(s_slab + SR * SW);   // [S]
+  float* s_part = (float*)(s_radii + S);     // [2][P][NWARP]
 
   const int b = blockIdx.y;
   const int tile = blockIdx.x;
   const int ti = tile / tiles_per_row;
-  const int tj = ti + tile % tiles_per_row;
-  const int n_col_tiles = (N + TILE - 1) / TILE;
+  const int r0 = ti * TR;
+  const int c0 = r0 + (tile - ti * tiles_per_row) * TC;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int g = tid & 31;                    // blur row: dense r0 - 1 + g
+  const int warp = tid >> 5;                 // tile columns CELLS * warp + o
   float* part = parts + ((size_t)b * gridDim.x + tile) * 2 * P;
 
-  if (valid[b] == 0 || tj >= n_col_tiles) {
+  if (valid[b] == 0 || c0 >= N) {
     // pad slot: zero partials (as the JAX kernel writes); a tile past the
-    // last column: neutral partials. Band outputs keep the pre-fill.
+    // last column: neutral partials. Band cells: the empty state.
     const float mn = valid[b] == 0 ? 0.f : INFINITY;
     for (int p = tid; p < P; p += THREADS) {
       part[p] = mn;
       part[P + p] = 0.f;
     }
+    store_band(band_v, band_sig, b, N, DB, r0, c0, nullptr, nullptr);
     return;
   }
 
-  const int r0 = ti * TILE;
-  const int c0 = tj * TILE;
-  const float* blk = cs + (size_t)b * N * N;
-
-  for (int k = tid; k < S * T; k += THREADS) s_taps[k] = taps[k];
-  // slab cell (sr, sc) holds dense (r0 - 1 - R + sr, c0 - 1 - R + sc)
-  for (int k = tid; k < SW * SW; k += THREADS) {
-    const int sr = k / SW, sc = k - (k / SW) * SW;
-    const int gi = reflect(r0 - 1 - R + sr, N);
-    const int gj = reflect(c0 - 1 - R + sc, N);
-    s_slab[k] = blk[(size_t)gi * N + gj];
-  }
-
-  // this thread's tile cells: row ir = warp + 8m, col ic = lane
-  bool nz[CELLS];
-  float bv[CELLS], Lp[CELLS], mP[CELLS], Lc[CELLS], mC[CELLS];
-  int bs[CELLS];
+  // this thread's tile cells: row i, columns j0 + o (lanes 0 and 31 hold
+  // the halo rows and own no cell)
+  const int i = r0 - 1 + g;
+  const int j0 = c0 + CELLS * warp;
+  const float* nzb = nzf + (size_t)b * N * N;
+  unsigned nz = 0;
 #pragma unroll
-  for (int m = 0; m < CELLS; ++m) {
-    const int i = r0 + warp + 8 * m, j = c0 + lane;
-    const int d = j - i;
-    nz[m] = i < N && j < N && d >= 0 && d < DB &&
-            nzf[(size_t)b * N * N + (size_t)i * N + j] > 0.5f;
-    bv[m] = 0.f;
-    bs[m] = -1;
-    Lp[m] = mP[m] = Lc[m] = mC[m] = 0.f;
+  for (int o = 0; o < CELLS; ++o) {
+    const int d = j0 + o - i;
+    if (g >= 1 && g <= TR && i < N && j0 + o < N && d >= 0 && d < DB &&
+        __ldg(nzb + (size_t)i * N + j0 + o) > 0.5f)
+      nz |= 1u << o;
   }
+  if (!__syncthreads_or(nz != 0)) {
+    // no support cell: no candidate, neutral partials
+    for (int p = tid; p < P; p += THREADS) {
+      part[p] = INFINITY;
+      part[P + p] = 0.f;
+    }
+    store_band(band_v, band_sig, b, N, DB, r0, c0, nullptr, nullptr);
+    return;
+  }
+
+  // in flight together: this thread's sigma radius (S <= THREADS), then
+  // the slab, eight loads per thread at a time; slab cell (sr, sc) holds
+  // dense (r0 - 1 - R + sr, c0 - 1 - R + sc)
+  const int rk = tid < S ? __ldg(radii + tid) : 0;
+  const float* blk = cs + (size_t)b * N * N;
+  constexpr int BATCH = 8;
+  for (int k0 = tid; k0 < SR * SW; k0 += BATCH * THREADS) {
+    float v[BATCH];
+#pragma unroll
+    for (int e = 0; e < BATCH; ++e) {
+      const int k = k0 + e * THREADS;
+      const int sr = k / SW, sc = k - (k / SW) * SW;
+      const int gi = reflect(r0 - 1 - R + sr, N);
+      const int gj = reflect(c0 - 1 - R + sc, N);
+      v[e] = k < SR * SW ? __ldg(blk + (size_t)gi * N + gj) : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < BATCH; ++e)
+      if (k0 + e * THREADS < SR * SW) s_slab[k0 + e * THREADS] = v[e];
+  }
+  if (tid < S) s_radii[tid] = rk;
+  __syncthreads();
+  // each sigma's nonzero taps first, zero-padded to TW
+#pragma unroll 4
+  for (int k = tid; k < S * TW; k += THREADS) {
+    const int sig = k / TW, t = k - (k / TW) * TW;
+    const int r = s_radii[sig];
+    s_taps[k] = t <= 2 * r ? __ldg(taps + sig * T + R - r + t) : 0.f;
+  }
+
+  // per cell: best response and plane; the current plane Lc and its 3x3
+  // max mC; as bits, whether the previous plane was its own max
+  // (Lp == mP) and whether Lc > mP (the only uses of the previous plane)
+  float bv[CELLS], Lc[CELLS], mC[CELLS];
+  int bs[CELLS];
+  unsigned pmax = 0, pgt = 0;
+  float gprev[HW];                           // previous blur of this row
+#pragma unroll
+  for (int o = 0; o < CELLS; ++o) {
+    bv[o] = 0.f;
+    bs[o] = -1;
+    Lc[o] = mC[o] = 0.f;
+  }
+  const bool row_in = i >= 0 && i < N;
   __syncthreads();
 
   for (int o = 0; o < n_octaves; ++o) {
     for (int k = 0; k < BLURS; ++k) {
-      const float* w = s_taps + (o * BLURS + k) * T;
-      // the sigma's nonzero taps are [lo, T - 1 - lo] (symmetric, padded)
-      int lo = 0;
-      while (lo < R && w[lo] == 0.f) ++lo;
-      const int hi = T - 1 - lo;
-
-      // row pass: tmp[r][c] = sum_t w[t] slab[r + t][c], for the columns
-      // [lo, G - 1 + hi] the column pass reads
-      const int ncols = G + hi - lo;
-      for (int e = tid; e < G * ncols; e += THREADS) {
-        const int r = e / ncols;
-        const int c = lo + (e - r * ncols);
-        const float* src = s_slab + (size_t)r * SW + c;
-        float acc = 0.f;
-        for (int t = lo; t <= hi; ++t) acc = fmaf(w[t], src[t * SW], acc);
-        s_tmp[r * SW + c] = acc;
-      }
+      const int sig = o * BLURS + k;
+      const int r = s_radii[sig];
+      const int lo = R - r;
+      const int nt = 2 * r + 1;
+      const float* w = s_taps + sig * TW;
+      float* tmp = s_tmp + (sig & 1) * GR * TP;
+      // tmp column c holds slab column lo + c, c < GC + 2r
+      for (int t0 = 0; t0 < nt; t0 += SEG)
+        vpass_n(min(SEG, nt - t0), w + t0, s_slab, tmp, SW, TP, lo, t0,
+                GC + 2 * r, t0 == 0);
       __syncthreads();
 
-      // column pass into the 34x34 blur tile; zero outside the matrix;
-      // DoG L_{k-1} = G_{k-1} - G_k on the same cells
-      float* gcur = s_gbuf + (k & 1) * G * G;
-      const float* gprev = s_gbuf + ((k + 1) & 1) * G * G;
-      for (int e = tid; e < G * G; e += THREADS) {
-        const int r = e / G, c = e - (e / G) * G;
-        const float* src = s_tmp + r * SW + c;
-        float acc = 0.f;
-        for (int t = lo; t <= hi; ++t) acc = fmaf(w[t], src[t], acc);
-        const int gi = r0 - 1 + r, gj = c0 - 1 + c;
-        if (gi < 0 || gi >= N || gj < 0 || gj >= N) acc = 0.f;
-        gcur[e] = acc;
-        if (k > 0) s_L[e] = gprev[e] - acc;
+      // blur at row g, blur columns CELLS * warp + o, o < HW (dense
+      // column c0 - 1 + CELLS * warp + o); zero outside the matrix
+      float G[HW];
+#pragma unroll
+      for (int e = 0; e < HW; ++e) G[e] = 0.f;
+      const float* x = tmp + g * TP + CELLS * warp;
+      for (int t0 = 0; t0 < nt; t0 += SEG)
+        hpass_n(min(SEG, nt - t0), G, w + t0, x + t0);
+#pragma unroll
+      for (int e = 0; e < HW; ++e) {
+        const int gj = j0 - 1 + e;
+        if (!(row_in && gj >= 0 && gj < N)) G[e] = 0.f;
       }
-      __syncthreads();
-      if (k == 0) continue;
-
-      // this plane's value and 3x3 max at each owned cell
-      float Lv[CELLS], mv[CELLS];
+      if (k == 0) {
 #pragma unroll
-      for (int m = 0; m < CELLS; ++m) {
-        const int r = warp + 8 * m + 1, c = lane + 1;
-        Lv[m] = s_L[r * G + c];
-        float mx = s_L[(r - 1) * G + c - 1];
-#pragma unroll
-        for (int dr = -1; dr <= 1; ++dr)
-#pragma unroll
-          for (int dc = -1; dc <= 1; ++dc)
-            mx = fmaxf(mx, s_L[(r + dr) * G + c + dc]);
-        mv[m] = mx;
-      }
-      if (k == 1) {
-#pragma unroll
-        for (int m = 0; m < CELLS; ++m) { Lp[m] = Lv[m]; mP[m] = mv[m]; }
+        for (int e = 0; e < HW; ++e) gprev[e] = G[e];
         continue;
       }
-      if (k == 2) {
+
+      // DoG L_{k-1} = G_{k-1} - G_k on the row; its 3x3 max at each cell:
+      // across the row here, down the column from lanes g - 1 and g + 1
+      float Lv[HW], mv[CELLS];
 #pragma unroll
-        for (int m = 0; m < CELLS; ++m) { Lc[m] = Lv[m]; mC[m] = mv[m]; }
+      for (int e = 0; e < HW; ++e) {
+        Lv[e] = gprev[e] - G[e];
+        gprev[e] = G[e];
+      }
+#pragma unroll
+      for (int c = 0; c < CELLS; ++c) {
+        const float h = fmaxf(fmaxf(Lv[c], Lv[c + 1]), Lv[c + 2]);
+        const float up = __shfl_up_sync(0xffffffffu, h, 1);
+        const float dn = __shfl_down_sync(0xffffffffu, h, 1);
+        mv[c] = fmaxf(fmaxf(up, h), dn);
+      }
+      if (k == 1) {                          // L_0: mC holds its max
+        pmax = 0;
+#pragma unroll
+        for (int c = 0; c < CELLS; ++c) {
+          if (Lv[c + 1] == mv[c]) pmax |= 1u << c;
+          mC[c] = mv[c];
+        }
+        continue;
+      }
+      if (k == 2) {                          // L_1
+        pgt = 0;
+#pragma unroll
+        for (int c = 0; c < CELLS; ++c) {
+          if (Lv[c + 1] > mC[c]) pgt |= 1u << c;
+          Lc[c] = Lv[c + 1];
+          mC[c] = mv[c];
+        }
         continue;
       }
 
       // plane k - 3 of this octave: Lc = L_{k-2}, Ln = L_{k-1}
       const int plane = o * PLANES + k - 3;
       float mn = INFINITY, sm = 0.f;
+      unsigned cmax = 0, cgt = 0;
 #pragma unroll
-      for (int m = 0; m < CELLS; ++m) {
-        const float al = fabsf(Lc[m]);
-        if (nz[m]) {
+      for (int c = 0; c < CELLS; ++c) {
+        const float Ln = Lv[c + 1];
+        const bool z = (nz >> c) & 1u;
+        const float al = fabsf(Lc[c]);
+        if (z) {
           mn = fminf(mn, al);
           sm += al;
         }
-        const bool will = nz[m] && Lc[m] > bv[m] && Lc[m] == mC[m] &&
-                          (Lp[m] == mP[m] || Lv[m] == mv[m]) &&
-                          Lc[m] > mP[m] && Lc[m] > mv[m];
+        const bool at_max = Lc[c] == mC[c];
+        const bool will = z && Lc[c] > bv[c] && at_max &&
+                          (((pmax >> c) & 1u) || Ln == mv[c]) &&
+                          ((pgt >> c) & 1u) && Lc[c] > mv[c];
         if (will) {
-          bv[m] = Lc[m];
-          bs[m] = plane;
+          bv[c] = Lc[c];
+          bs[c] = plane;
         }
-        Lp[m] = Lc[m];
-        mP[m] = mC[m];
-        Lc[m] = Lv[m];
-        mC[m] = mv[m];
+        if (at_max) cmax |= 1u << c;
+        if (Ln > mC[c]) cgt |= 1u << c;
+        Lc[c] = Ln;
+        mC[c] = mv[c];
       }
+      pmax = cmax;
+      pgt = cgt;
+      // |L| >= 0: its bits order as the values do, so the min is exact
+      mn = __uint_as_float(
+          __reduce_min_sync(0xffffffffu, __float_as_uint(mn)));
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      for (int off = 16; off > 0; off >>= 1)
         sm += __shfl_xor_sync(0xffffffffu, sm, off);
-      }
-      if (lane == 0) {
-        s_red[warp] = mn;
-        s_red[NWARP + warp] = sm;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        float tmn = s_red[0], tsm = s_red[NWARP];
-        for (int q = 1; q < NWARP; ++q) {
-          tmn = fminf(tmn, s_red[q]);
-          tsm += s_red[NWARP + q];
-        }
-        part[plane] = tmn;
-        part[P + plane] = tsm;
+      if (g == 0) {
+        s_part[plane * NWARP + warp] = mn;
+        s_part[(P + plane) * NWARP + warp] = sm;
       }
     }
   }
 
+  // the tile's partials, warps in order; the band cells staged in the
+  // (now free) vertical-pass buffer and written row by row. Cells that
+  // are not this thread's (j >= N, off the band) hold the empty state.
+  __syncthreads();
+  float* s_bv = s_tmp;                       // [TR][TC + 1]
+  int* s_bs = (int*)(s_tmp + TR * (TC + 1));
+  if (g >= 1 && g <= TR) {
 #pragma unroll
-  for (int m = 0; m < CELLS; ++m) {
-    const int i = r0 + warp + 8 * m, j = c0 + lane;
-    const int d = j - i;
-    if (i < N && j < N && d >= 0 && d < DB) {
-      const size_t at = ((size_t)b * N + i) * DB + d;
-      band_v[at] = bv[m];
-      band_sig[at] = bs[m];
+    for (int c = 0; c < CELLS; ++c) {
+      s_bv[(g - 1) * (TC + 1) + CELLS * warp + c] = bv[c];
+      s_bs[(g - 1) * (TC + 1) + CELLS * warp + c] = bs[c];
     }
   }
+  __syncthreads();
+  for (int p = tid; p < P; p += THREADS) {
+    float tmn = s_part[p * NWARP], tsm = s_part[(P + p) * NWARP];
+    for (int q = 1; q < NWARP; ++q) {
+      tmn = fminf(tmn, s_part[p * NWARP + q]);
+      tsm += s_part[(P + p) * NWARP + q];
+    }
+    part[p] = tmn;
+    part[P + p] = tsm;
+  }
+  store_band(band_v, band_sig, b, N, DB, r0, c0, s_bv, s_bs);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`. Geometry (tiles_per_row, smem_bytes) comes from the
-// Python wrapper (mustache_tpu_torch/kernels/fused_ladder.py), the single
-// source of those formulas. Returns cudaGetLastError() after the launch.
+// Launch on `stream`. Geometry (tiles_per_row, smem_bytes) and the
+// per-sigma radii come from the Python wrapper
+// (mustache_tpu_torch/kernels/fused_ladder.py), the single source of those
+// formulas. The kernel's shared-memory attributes are set once per device,
+// and again only when a launch needs more than was set. Returns
+// cudaGetLastError() after the launch.
 int mtt_fused_ladder_nms(const float* cs, const float* nzf, const int* valid,
-                         const float* taps, float* band_v, int* band_sig,
-                         float* parts, int B, int N, int DB, int R,
-                         int n_octaves, int tiles_per_row, size_t smem_bytes,
-                         void* stream) {
+                         const float* taps, const int* radii, float* band_v,
+                         int* band_sig, float* parts, int B, int N, int DB,
+                         int R, int n_octaves, int tiles_per_row,
+                         size_t smem_bytes, void* stream) {
+  constexpr int MAX_DEVICES = 64;
+  static size_t smem_set[MAX_DEVICES] = {};
   if (B <= 0 || N <= 0 || DB <= 0 || R < 0 || n_octaves <= 0 ||
-      tiles_per_row <= 0)
+      BLURS * n_octaves > THREADS || tiles_per_row <= 0)
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_ladder_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem_bytes > smem_set[dev]) {
+    e = cudaFuncSetAttribute(fused_ladder_nms_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fused_ladder_nms_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
+    smem_set[dev] = smem_bytes;
   }
-  const int n_row_tiles = (N + TILE - 1) / TILE;
+  const int n_row_tiles = (N + TR - 1) / TR;
   const dim3 grid(n_row_tiles * tiles_per_row, B);
   fused_ladder_nms_kernel<<<grid, THREADS, smem_bytes,
                             (cudaStream_t)stream>>>(
-      cs, nzf, valid, taps, band_v, band_sig, parts, N, DB, R, n_octaves,
-      tiles_per_row);
+      cs, nzf, valid, taps, radii, band_v, band_sig, parts, N, DB, R,
+      n_octaves, tiles_per_row);
   return (int)cudaGetLastError();
 }
 

@@ -33,8 +33,10 @@ import torch
 import torch.nn.functional as F
 
 # kernel geometry, mirrored in csrc/fused_ladder.cu: one 256-thread block
-# per (batch slot, 32x32 dense tile that meets the band)
-TILE = 32
+# per (batch slot, 30 x 64 dense tile that meets the band); tile k of row
+# tile ti covers rows [30 ti, 30 ti + 30) and columns [30 ti + 64 k, ... + 64)
+TILE_ROWS = 30
+TILE_COLS = 64
 THREADS = 256
 BLURS_PER_OCTAVE = 12
 SMEM_LIMIT = 232_448     # H100 dynamic shared memory per block, bytes
@@ -43,30 +45,45 @@ LAUNCHES = 0
 
 
 def tiles_per_row(DB: int) -> int:
-    """Column tiles a row tile needs: tile (ti, ti + k) meets the band
-    0 <= j - i < DB iff 0 <= k <= (DB + TILE - 2) // TILE."""
-    return (DB + TILE - 2) // TILE + 1
+    """Column tiles a row tile needs: tile k holds band offsets d = j - i
+    from 64 k - 29 to 64 k + 63, so it meets 0 <= d < DB iff
+    64 k < DB + 29."""
+    return -(-(DB + TILE_ROWS - 1) // TILE_COLS)
 
 
 def n_tiles(N: int, DB: int) -> int:
-    return -(-N // TILE) * tiles_per_row(DB)
+    return -(-N // TILE_ROWS) * tiles_per_row(DB)
 
 
 def smem_bytes(R: int, n_octaves: int) -> int:
-    """Dynamic shared memory of one block: the ladder taps, the reflected
-    input slab, the row-pass output, two blur planes, one DoG plane, and
-    the partials' warp scratch (all f32)."""
+    """Dynamic shared memory of one block (4-byte words): the ladder's taps
+    (2R + 1 per sigma, padded to a multiple of 4), two buffers of the
+    vertical pass's output (32 rows, pitch 32 ceil((66 + 2R) / 32) + 4),
+    the reflected input slab (32 + 2R) x (66 + 2R), the radii, and the
+    per-warp partials of every plane."""
     S = BLURS_PER_OCTAVE * n_octaves
-    g = TILE + 2                       # blur tile edge: tile + NMS halo
-    sw = g + 2 * R                     # slab edge: blur tile + conv radius
-    floats = S * (2 * R + 1) + sw * sw + g * sw + 3 * g * g \
-        + 2 * (THREADS // 32)
-    return 4 * floats
+    gr, gc = TILE_ROWS + 2, TILE_COLS + 2       # blurs: tile + NMS halo
+    sw = gc + 2 * R                             # slab row: + conv radius
+    tp = 32 * -(-sw // 32) + 4
+    planes = (BLURS_PER_OCTAVE - 3) * n_octaves
+    words = S * 4 * -(-(2 * R + 1) // 4) + 2 * gr * tp + (gr + 2 * R) * sw \
+        + S + 2 * planes * (THREADS // 32)
+    return 4 * words
 
 
 def kernel_fits(R: int, n_octaves: int) -> bool:
     """The gate: the ladder radius fits one block's shared memory."""
     return smem_bytes(R, n_octaves) <= SMEM_LIMIT
+
+
+def ladder_radii(kernels: torch.Tensor, R: int) -> torch.Tensor:
+    """Each sigma's own radius r (its nonzero taps are [R - r, R + r] of
+    the zero-padded [S, 2R+1] ladder), as an int32 tensor on the taps'
+    device; computed there, so no host sync. For a caller that does not
+    pass ``radii`` (the detector builds them once,
+    ``scalespace.radii_tensor``)."""
+    first = (kernels != 0).to(torch.int32).argmax(dim=1)
+    return (R - first).to(torch.int32)
 
 
 def _check(cs, nzf, kernels, valid, R, n_octaves, planes_per_octave, DB):
@@ -93,13 +110,16 @@ def _check(cs, nzf, kernels, valid, R, n_octaves, planes_per_octave, DB):
 
 
 def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
-                             planes_per_octave: int, DB: int, valid=None):
+                             planes_per_octave: int, DB: int, valid=None,
+                             radii=None):
     """Band best-state from the sentinel-filled blocks (see module doc).
 
     ``cs``/``nzf``: [B, N, N] f32; ``kernels``: [S, 2R+1] f32 ladder taps
     (``scalespace.ladder_tensor``); ``valid``: optional [B] int tensor,
-    0 marks a pad slot. CPU tensors run the plain version; CUDA tensors
-    launch the kernel."""
+    0 marks a pad slot; ``radii``: optional [S] int32 tensor of each
+    sigma's radius (``scalespace.radii_tensor``), derived from the taps
+    when omitted. CPU tensors run the plain version; CUDA tensors launch
+    the kernel."""
     global LAUNCHES
     _check(cs, nzf, kernels, valid, R, n_octaves, planes_per_octave, DB)
     if cs.device.type == "cpu":
@@ -118,19 +138,27 @@ def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
     dev = cs.device
     P = n_octaves * planes_per_octave
     cs, nzf, kernels = cs.contiguous(), nzf.contiguous(), kernels.contiguous()
+    if radii is None:
+        radii = ladder_radii(kernels, R)
+    elif (tuple(radii.shape) != (kernels.shape[0],)
+          or radii.dtype != torch.int32 or radii.device != dev):
+        raise ValueError(f"radii must be [S]={kernels.shape[0]} int32 on "
+                         f"{dev}")
+    radii = radii.contiguous()
     valid = (torch.ones(B, dtype=torch.int32, device=dev) if valid is None
              else valid.to(torch.int32).contiguous())
-    band_v = torch.zeros((B, N, DB), dtype=torch.float32, device=dev)
-    band_sig = torch.full((B, N, DB), -1, dtype=torch.int32, device=dev)
+    # the kernel writes every band cell (tiles cover the band exactly)
+    band_v = torch.empty((B, N, DB), dtype=torch.float32, device=dev)
+    band_sig = torch.empty((B, N, DB), dtype=torch.int32, device=dev)
     parts = torch.empty((B, n_tiles(N, DB), 2 * P), dtype=torch.float32,
                         device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mtt_fused_ladder_nms(
             cs.data_ptr(), nzf.data_ptr(), valid.data_ptr(),
-            kernels.data_ptr(), band_v.data_ptr(), band_sig.data_ptr(),
-            parts.data_ptr(), B, N, DB, R, n_octaves, tiles_per_row(DB),
-            smem_bytes(R, n_octaves), stream)
+            kernels.data_ptr(), radii.data_ptr(), band_v.data_ptr(),
+            band_sig.data_ptr(), parts.data_ptr(), B, N, DB, R, n_octaves,
+            tiles_per_row(DB), smem_bytes(R, n_octaves), stream)
     if rc != 0:
         raise RuntimeError("fused_ladder_nms launch failed: "
                            + lib.mtt_error_string(rc).decode())
@@ -145,7 +173,7 @@ def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """ctypes signatures of csrc/fused_ladder.cu's C entry points."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.mtt_fused_ladder_nms.argtypes = [vp] * 7 + [ci] * 6 + [
+    lib.mtt_fused_ladder_nms.argtypes = [vp] * 8 + [ci] * 6 + [
         ctypes.c_size_t, vp]
     lib.mtt_fused_ladder_nms.restype = ci
     lib.mtt_error_string.argtypes = [ci]

@@ -23,7 +23,9 @@ import torch
 
 from mustache_tpu_torch.bandnorm import bucket_rows, normalize_band_device
 from mustache_tpu_torch.config import DetectionConfig, block_mask_sizes, chunk_grid
-from mustache_tpu_torch.detect import band_width, build_detector, finish_block, unpack_block
+from mustache_tpu_torch.detect import (
+    band_width, build_detector, check_precision, finish_block, unpack_block,
+)
 from mustache_tpu_torch.device import resolve_device
 
 
@@ -90,11 +92,13 @@ def _batch_size(cfg: DetectionConfig, n: int, Dl: int, nblocks: int,
 
 def detect_loops_coo(x, y, v, cfg: DetectionConfig, *,
                      exact_normalize: bool = False, runner=None,
-                     device="cpu", log=None) -> list[Loop]:
+                     device=None, log=None) -> list[Loop]:
     """Loop calls for one intra-chromosomal COO map (bin coordinates) on
-    ``device`` ("cpu" or "cuda[:i]"; CUDA runs the fused kernel, the CPU
-    its plain PyTorch version). ``x``, ``y``, ``v`` are not modified.
-    ``log``: optional callable taking one message string."""
+    ``device``: the card by default ("cuda[:i]" runs the fused kernel);
+    ``device="cpu"`` runs its plain PyTorch version. Unported modes raise
+    ``NotImplementedError`` before the device is resolved, so on any host.
+    ``x``, ``y``, ``v`` are not modified. ``log``: optional callable
+    taking one message string."""
     if exact_normalize:
         raise NotImplementedError(
             "exact_normalize: host normalize not ported yet (ROADMAP Queue "
@@ -103,6 +107,7 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *,
         raise NotImplementedError(
             "runner: sharded runs not ported yet (ROADMAP Queue 1, "
             "sharding.py)")
+    check_precision(cfg)
     dev = resolve_device(device)
     if len(v) == 0:
         return []
@@ -189,8 +194,9 @@ def write_loops(path: str, per_chrom: Iterable[tuple[str, str, int, Sequence[Loo
 def find_loops(x, y, v, *, resolution: int = 5000, distance_bp: int = 2_000_000,
                pt: float = 0.2, st: float = 0.88, sigma0: float = 1.6,
                octaves: int = 2, precision: str = "float32",
-               device="cpu") -> list[Loop]:
-    """One-call API: COO contact map in, loop calls out, on ``device``."""
+               device=None) -> list[Loop]:
+    """One-call API: COO contact map in, loop calls out, on ``device``
+    (the card unless ``device="cpu"``)."""
     from mustache_tpu_torch.config import clamp_distance_filter
 
     cfg = DetectionConfig(

@@ -119,3 +119,13 @@ def ladder_tensor(kernels: np.ndarray, device) -> "torch.Tensor":
 
     return torch.as_tensor(np.ascontiguousarray(kernels, np.float32),
                            device=device)
+
+
+def radii_tensor(blur_sigmas, device) -> "torch.Tensor":
+    """Each blur sigma's own radius (its nonzero taps in ``ladder_tensor``
+    are ``[R - r, R + r]``) as the int32 device tensor the fused kernel
+    reads beside the taps; built once, with them."""
+    import torch
+
+    return torch.tensor([kernel_radius(s) for s in blur_sigmas],
+                        dtype=torch.int32, device=device)

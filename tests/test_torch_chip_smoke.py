@@ -56,3 +56,19 @@ def test_near_tie_margin():
     # a constant map ties everywhere
     assert chip_smoke.near_tie(np.ones((64, 64), np.float32), 30, 40,
                                spec) == 0
+
+
+def test_kernel_bound_counts_the_ladder():
+    """The FP32 bound chip_smoke reports: 392 nonzero taps of the default
+    ladder, two passes, at each band cell of the real slots."""
+    from mustache_tpu_torch.scalespace import build_ladder
+
+    spec = build_ladder((1.6, 3.2))
+    flop, nbytes, ms, by = chip_smoke.kernel_bound(spec, 2000, 512, 3)
+    cells = 3 * sum(min(512, 2000 - i) for i in range(2000))
+    assert cells == 3 * 893_184
+    assert flop == 2 * 2 * 392 * cells and nbytes == 16 * cells
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * flop / chip_smoke.FP32_FLOPS)
+    _, _, ms_1kb, _ = chip_smoke.kernel_bound(spec, 4000, 2048, 3)
+    assert round(ms, 4) == 0.0627 and round(ms_1kb, 3) == 0.428

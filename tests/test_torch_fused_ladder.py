@@ -21,7 +21,9 @@ from mustache_tpu_torch.config import DetectionConfig
 from mustache_tpu_torch.detect import band_width, build_detector
 from mustache_tpu_torch.device import resolve_device
 from mustache_tpu_torch.kernels import fused_ladder as fl
-from mustache_tpu_torch.scalespace import ladder_tensor
+from mustache_tpu_torch.scalespace import (
+    kernel_radius, ladder_tensor, radii_tensor,
+)
 from synthetic import synthetic_hic
 
 
@@ -126,21 +128,39 @@ def test_wrapper_has_no_other_device_path():
 
 @pytest.mark.parametrize("DB", [1, 31, 32, 33, 128, 512, 2048])
 def test_tile_grid_covers_band_exactly(DB):
-    """Tile (ti, ti + k), k < tiles_per_row, meets the band; k = tiles_per_row
-    would not. Checked cell by cell on a small grid."""
-    T = fl.TILE
-    k_max = fl.tiles_per_row(DB)
-    r = np.arange(T)
-    for k in range(k_max + 1):
-        d = (k * T + r[None, :]) - r[:, None]
-        meets = ((d >= 0) & (d < DB)).any()
-        assert meets == (k < k_max)
+    """The launched tiles (row tile ti, column tile k < tiles_per_row,
+    those starting at a column < N; the kernel returns at once from the
+    rest) cover each band cell 0 <= j - i < DB, j < N, exactly once, and
+    each of them meets the band."""
+    TR, TC = fl.TILE_ROWS, fl.TILE_COLS
+    N = DB + 97
+    cover = np.zeros((N, N), np.int16)
+    tpr = fl.tiles_per_row(DB)
+    launched = 0
+    for t in range(fl.n_tiles(N, DB)):
+        ti, k = divmod(t, tpr)
+        r0, c0 = ti * TR, ti * TR + k * TC
+        if c0 >= N:
+            continue
+        launched += 1
+        cover[r0:r0 + TR, c0:c0 + TC] += 1
+        i = np.arange(r0, min(r0 + TR, N))[:, None]
+        j = np.arange(c0, min(c0 + TC, N))[None, :]
+        assert ((j - i >= 0) & (j - i < DB)).any(), (ti, k)
+    i = np.arange(N)[:, None]
+    d = np.arange(N)[None, :] - i
+    band = (d >= 0) & (d < DB)
+    assert (cover[band] == 1).all()
+    assert launched > 0
 
 
 def test_shared_memory_gate():
-    assert fl.smem_bytes(14, 2) <= 48 * 1024      # default ladder: static
-    assert fl.kernel_fits(14, 3)
+    for octaves in (2, 3):
+        spec = build_ladder(DetectionConfig(octaves=octaves).octave_values)
+        assert fl.smem_bytes(spec.radius, octaves) <= fl.SMEM_LIMIT
+        assert fl.kernel_fits(spec.radius, octaves)
     spec = build_ladder(DetectionConfig(sigma0=1.6, octaves=6).octave_values)
+    assert fl.smem_bytes(spec.radius, 6) > fl.SMEM_LIMIT
     assert not fl.kernel_fits(spec.radius, 6)
     with pytest.raises(ValueError, match="shared memory"):
         build_detector(DetectionConfig(octaves=6), 2000,
@@ -148,3 +168,18 @@ def test_shared_memory_gate():
     with pytest.raises(NotImplementedError, match="float64"):
         build_detector(DetectionConfig(precision="float64"), 2000,
                        device=resolve_device("cpu"))
+
+
+@pytest.mark.parametrize("octaves", [2, 3, 4])
+def test_ladder_radii_are_the_sigmas_own(octaves):
+    """The radii the kernel reads are scipy's radius of each blur sigma,
+    whether the detector builds them with the taps or the wrapper derives
+    them from the zero-padded taps alone."""
+    spec = build_ladder(DetectionConfig(octaves=octaves).octave_values)
+    taps = ladder_tensor(spec.kernels, torch.device("cpu"))
+    want = [kernel_radius(s) for s in spec.blur_sigmas]
+    got = fl.ladder_radii(taps, spec.radius)
+    assert got.dtype == torch.int32
+    assert got.tolist() == want
+    built = radii_tensor(spec.blur_sigmas, torch.device("cpu"))
+    assert built.dtype == torch.int32 and built.tolist() == want

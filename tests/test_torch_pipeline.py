@@ -4,6 +4,7 @@ equal, q within rtol 2e-4."""
 
 import numpy as np
 import pytest
+import torch
 
 from mustache_tpu.config import DetectionConfig as JaxConfig
 from mustache_tpu.pipeline import detect_loops_coo as jax_detect
@@ -45,18 +46,36 @@ def test_detect_loops_coo_matches_jax(n_bins, d_px, nblocks, tmp_path):
 def test_find_loops_leaves_input_and_matches_detect():
     x, y, v, _ = synthetic_hic(900, 120, seed=22, n_loops=10)
     v0 = v.copy()
-    got = find_loops(x, y, v, pt=0.1, st=0.8)
+    got = find_loops(x, y, v, pt=0.1, st=0.8, device="cpu")
     assert np.array_equal(v, v0)
     _assert_same_loops(got, detect_loops_coo(
         x, y, v, DetectionConfig(**KW), device="cpu"))
 
 
-def test_unported_modes_raise():
+def test_entry_points_default_to_the_card(monkeypatch):
+    """No device means the card: on a host without CUDA both entry points
+    raise, and nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x, y, v, _ = synthetic_hic(300, 40, seed=1, n_loops=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        detect_loops_coo(x, y, v, DetectionConfig(**KW))
+    with pytest.raises(RuntimeError, match="cuda"):
+        find_loops(x, y, v, pt=0.1, st=0.8)
+
+
+@pytest.mark.parametrize("device", [None, "cpu", "cuda"])
+def test_unported_modes_raise(device, monkeypatch):
+    """An unported mode says so on any host and for any device, before
+    the device is resolved."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, y, v, _ = synthetic_hic(300, 40, seed=1, n_loops=2)
     cfg = DetectionConfig(**KW)
     with pytest.raises(NotImplementedError, match="float64"):
-        detect_loops_coo(x, y, v, cfg.with_(precision="float64"))
+        detect_loops_coo(x, y, v, cfg.with_(precision="float64"),
+                         device=device)
+    with pytest.raises(NotImplementedError, match="float64"):
+        find_loops(x, y, v, precision="float64", device=device)
     with pytest.raises(NotImplementedError, match="exact_normalize"):
-        detect_loops_coo(x, y, v, cfg, exact_normalize=True)
+        detect_loops_coo(x, y, v, cfg, exact_normalize=True, device=device)
     with pytest.raises(NotImplementedError, match="sharding"):
-        detect_loops_coo(x, y, v, cfg, runner=object())
+        detect_loops_coo(x, y, v, cfg, runner=object(), device=device)
