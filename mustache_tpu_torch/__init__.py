@@ -6,9 +6,11 @@ Gaussians on Hi-C / Micro-C maps) for PyTorch, with the fused blur-ladder
 sits beside the JAX package ``mustache_tpu``, which is its reference, and
 never imports JAX.
 
-This first slice covers single-map intra-chromosomal detection at
-float32 from COO triplets (``detect_loops_coo`` / ``find_loops`` ->
-``write_loops``). What is still to port is listed in ROADMAP.md.
+It covers single-map intra-chromosomal detection at float32, from COO
+triplets (``detect_loops_coo`` / ``find_loops`` -> ``write_loops``) or
+from contact files through the CLI (``python -m mustache_tpu_torch``,
+``mustache-tpu-torch``: text, HiC-Pro, .hic, and .cool / .mcool where
+h5py is installed). What is still to port is listed in ROADMAP.md.
 """
 
 from mustache_tpu_torch.config import DetectionConfig

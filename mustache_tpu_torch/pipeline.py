@@ -7,10 +7,13 @@ Torch port of the device-normalize branch of
 sizes and ownership masks are the reference's (mustache.py:896-960), so
 per-block statistics reproduce the reference's numbers.
 
+The band goes up in the narrowest lossless encoding (uint8, uint16 or
+nibble-packed uint4, plus an exception list), filled by the native host
+fill (``io/native``) and, for large bands, streamed in two slabs.
+
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP Queue 1):
 ``precision="float64"`` and ``exact_normalize`` (host normalize,
-``normalize.py``), ``runner`` (sharding), and the u8/u4 streamed band
-upload (``fill_raw_band_compact`` / ``stream_band_to_device``).
+``normalize.py``) and ``runner`` (sharding).
 """
 
 from __future__ import annotations
@@ -21,12 +24,15 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from mustache_tpu_torch.bandnorm import bucket_rows, normalize_band_device
+from mustache_tpu_torch.bandnorm import (
+    bucket_rows, normalize_band_device, pad_exceptions,
+)
 from mustache_tpu_torch.config import DetectionConfig, block_mask_sizes, chunk_grid
 from mustache_tpu_torch.detect import (
     band_width, build_detector, check_precision, finish_block, unpack_block,
 )
 from mustache_tpu_torch.device import resolve_device
+from mustache_tpu_torch.io import native
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,19 +53,16 @@ class Loop:
 
 
 def fill_raw_band(x, y, v, band_shape) -> np.ndarray:
-    """Scatter-fill the RAW chromosome band ``band[x, y-x] = v``.
-
-    Integer counts < 2^16 (every unbiased text/.hic/.cool workload) fill a
-    uint16 band (half the H2D bytes of f32), widened to f32 on the device
-    (bandnorm.widen_band), which is lossless for such values; anything
-    else keeps an f32 band. The numpy twin of the JAX package's native
-    fill (``mustache_tpu/pipeline.py:55-77``)."""
-    fit = (v.size > 0 and float(v.min()) >= 0.0 and float(v.max()) < 65536.0
-           and not np.any(v != np.floor(v)))
-    band = np.zeros(band_shape, np.uint16 if fit else np.float32)
-    d = y - x
-    sel = (d >= 0) & (d < band.shape[1])
-    band[x[sel], d[sel]] = v[sel]
+    """Scatter-fill the RAW chromosome band ``band[x, y-x] = v`` with the
+    native fill: a uint16 band when every value is an integer count below
+    2^16 (widened losslessly on the device, bandnorm.widen_band), else an
+    f32 band (``mustache_tpu/pipeline.py:55-77``)."""
+    if native.values_fit_u16(v):
+        band = np.zeros(band_shape, np.uint16)
+        native.fill_band_u16(x, y, v, band)
+    else:
+        band = np.zeros(band_shape, np.float32)
+        native.fill_band(x, y, v, band)
     return band
 
 
@@ -69,6 +72,140 @@ def upload_band(band: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+# uint4 packing pays a host census and pack plus a larger exception
+# scatter; the JAX package found its link bytes worth that only from 8 M
+# band cells (``mustache_tpu/pipeline.py:80-83``). Kept as is: the H100
+# numbers are in PERF.md, the threshold is not retuned for the card.
+_U4_MIN_BYTES = 8_000_000
+EXC_BYTES = 12      # one exception record: i32 row + i32 col + f32 value
+
+
+def fill_raw_band_compact(x, y, v, band_shape, counts=None):
+    """Raw-band fill in the narrowest LOSSLESS transfer encoding
+    (``mustache_tpu/pipeline.py:86-172``).
+
+    Counts are almost all small integers with a thin tail of misfits, so
+    the band goes as uint8 or uint16 plus a (row, col, f32 value)
+    exception list that the device scatters over the widened band, or,
+    from ``_U4_MIN_BYTES`` band cells where it beats u8 by 0.7x, as
+    nibble-packed uint8 [rows, Dl // 2] with values 16..255 moved to the
+    exception list. Float-heavy data keeps the f32 band. ``counts``: the
+    ``native.classify_values`` census when the caller has it.
+
+    Returns ``(band, exceptions, packed4)``; ``exceptions`` is None or an
+    unpadded (rows, cols, values) triple. Requires unique (x, y) pairs
+    (the ingest-path invariant)."""
+    rows, Dl = band_shape
+    if not len(v):
+        return fill_raw_band(x, y, v, band_shape), None, False
+    ne8, ne16 = native.classify_values(v) if counts is None else counts
+    bytes8 = rows * Dl + ne8 * EXC_BYTES
+    bytes16 = 2 * rows * Dl + ne16 * EXC_BYTES
+    if min(bytes8, bytes16) >= 4 * rows * Dl:
+        return fill_raw_band(x, y, v, band_shape), None, False
+    # 4-bit census only when u8 wins (its misfits are a superset) and the
+    # band is large enough for the halved bytes to pay
+    ne4 = bytes4 = None
+    if (Dl % 2 == 0 and bytes8 <= bytes16 and rows * Dl >= _U4_MIN_BYTES):
+        ne4 = native.classify_values4(v)
+        bytes4 = rows * Dl // 2 + ne4 * EXC_BYTES
+    dtype, ne = (np.uint8, ne8) if bytes8 <= bytes16 else (np.uint16, ne16)
+    band = np.zeros(band_shape, dtype)
+    exc = native.fill_band_compact(x, y, v, band, ne + 16)
+    if bytes4 is not None and bytes4 < 0.7 * bytes8:
+        band, big = native.pack_band4(band, ne4 + 16)
+        exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
+        return band, (exc if len(exc[0]) else None), True
+    return band, (exc if len(exc[0]) else None), False
+
+
+@dataclasses.dataclass
+class BandUpload:
+    """A raw band on the device as it went up: ``band`` ([rows, Dl], or
+    [rows, Dl // 2] nibble-packed when ``packed4``), the unpadded host
+    exception triple or None, and the number of H2D slabs."""
+
+    band: torch.Tensor
+    exceptions: tuple | None
+    packed4: bool
+    slabs: int
+
+    @property
+    def encoding(self) -> str:
+        if self.packed4:
+            return "u4"
+        return {torch.uint8: "u8", torch.uint16: "u16",
+                torch.float32: "f32"}[self.band.dtype]
+
+    @property
+    def n_exceptions(self) -> int:
+        return 0 if self.exceptions is None else len(self.exceptions[0])
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes sent host to device: the band and the exception records."""
+        return (self.band.numel() * self.band.element_size()
+                + EXC_BYTES * self.n_exceptions)
+
+    def describe(self) -> str:
+        return (f"band={self.encoding} bytes={self.nbytes} "
+                f"exceptions={self.n_exceptions} slabs={self.slabs}")
+
+
+def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
+    """Slab-streamed compact band upload (``mustache_tpu/pipeline.py:
+    175-253``): for a large u8/u4 band, fill row slab k+1 on the host
+    while slab k's pinned, non-blocking H2D is in flight. The slabs land
+    in one preallocated device band, so nothing is concatenated. Other
+    bands take the one-shot :func:`fill_raw_band_compact` and one H2D."""
+    rows, Dl = band_shape
+    streamable = (len(v) >= (1 << 20) and rows >= 4096
+                  and rows * Dl >= 8_000_000)
+    counts = native.classify_values(v) if len(v) else None
+    if streamable:
+        ne8, ne16 = counts
+        bytes8 = rows * Dl + ne8 * EXC_BYTES
+        # only the u8/u4 encodings stream (u16/f32 data goes one-shot,
+        # with the same encoding fill_raw_band_compact would pick)
+        streamable = (bytes8 <= 2 * rows * Dl + ne16 * EXC_BYTES
+                      and bytes8 < 4 * rows * Dl)
+    if not streamable:
+        band, exc, p4 = fill_raw_band_compact(x, y, v, band_shape, counts)
+        return BandUpload(upload_band(band, device), exc, p4, 1)
+
+    ne4 = native.classify_values4(v) if Dl % 2 == 0 else None
+    p4 = ne4 is not None and rows * Dl // 2 + ne4 * EXC_BYTES < 0.7 * bytes8
+    pin = device.type == "cuda"
+    width = Dl // 2 if p4 else Dl
+    band_dev = torch.empty((rows, width), dtype=torch.uint8, device=device)
+    # 2 slabs: each range fill scans the whole COO, so more slabs cost
+    # host time faster than they add overlap
+    n_slabs = 2
+    per = -(-rows // n_slabs)
+    staged, excs = [], []
+    for g0 in range(0, rows, per):
+        g1 = min(g0 + per, rows)
+        slab = torch.zeros((g1 - g0, Dl), dtype=torch.uint8,
+                           pin_memory=pin and not p4)
+        exc = native.fill_band_compact_range(x, y, v, slab.numpy(), g0, g1,
+                                             ne8 + 16)
+        if p4:
+            packed = torch.empty((g1 - g0, width), dtype=torch.uint8,
+                                 pin_memory=pin)
+            _, big = native.pack_band4(slab.numpy(), ne4 + 16,
+                                       out=packed.numpy())
+            big = (big[0] + np.int32(g0), big[1], big[2])
+            exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
+            slab = packed
+        excs.append(exc)
+        # async on CUDA: the next slab fills while this one is in flight
+        band_dev[g0:g1].copy_(slab, non_blocking=pin)
+        staged.append(slab)
+    exc = tuple(np.concatenate([e[i] for e in excs]) for i in range(3))
+    return BandUpload(band_dev, exc if len(exc[0]) else None, p4,
+                      len(staged))
 
 
 def _batch_size(cfg: DetectionConfig, n: int, Dl: int, nblocks: int,
@@ -111,9 +248,9 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *,
     dev = resolve_device(device)
     if len(v) == 0:
         return []
-    x = np.asarray(x, dtype=np.int64)
-    y = np.asarray(y, dtype=np.int64)
-    v = np.asarray(v, dtype=np.float64)
+    x = np.ascontiguousarray(x, dtype=np.int64)
+    y = np.ascontiguousarray(y, dtype=np.int64)
+    v = np.ascontiguousarray(v, dtype=np.float64)
 
     d_px = cfg.distance_px
     n = int(max(x.max(), y.max())) + 1
@@ -122,18 +259,23 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *,
     width = cfg.chunk_size
     detector = build_detector(cfg, width, device=dev)   # raises if unsupported
 
-    # ONE host fill and ONE H2D per chromosome: the diagonal band; rows
-    # ride the JAX package's bucket ladder (pad rows are inert)
+    # ONE host fill and ONE (possibly two-slab) H2D per chromosome: the
+    # diagonal band in its compact encoding; rows ride the JAX package's
+    # bucket ladder (pad rows are inert)
     band_shape = (bucket_rows(max(n, width)), band_width(width, d_px))
-    band = upload_band(fill_raw_band(x, y, v, band_shape), dev)
-    band, _ = normalize_band_device(band, n, cfg.resolution, d_px)
+    upload = stream_band_to_device(x, y, v, band_shape, dev)
+    exc = (None if upload.exceptions is None
+           else pad_exceptions(upload.exceptions, band_shape[0]))
+    band, _ = normalize_band_device(upload.band, n, cfg.resolution, d_px,
+                                    exceptions=exc, packed4=upload.packed4)
 
     start, end = chunk_grid(n, width, d_px)
     masks = block_mask_sizes(start, end, d_px)
     nblocks = len(start)
     B = _batch_size(cfg, width, band_shape[1], nblocks, dev)
     if log is not None:
-        log(f"n={n} blocks={nblocks} of {width}^2 batch={B} device={dev}")
+        log(f"n={n} blocks={nblocks} of {width}^2 batch={B} device={dev} "
+            f"{upload.describe()}")
 
     def run(det, idxs) -> np.ndarray:
         # one packed D2H per batch

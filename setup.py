@@ -32,7 +32,8 @@ setup(
     packages=find_packages(exclude=["tests"]),
     cmdclass={"build_py": BuildWithNative},
     package_data={"mustache_tpu.io.native": ["*.so", "*.cpp", "Makefile"],
-                  "mustache_tpu_torch.kernels": ["csrc/*.cu"]},
+                  "mustache_tpu_torch.kernels": ["csrc/*.cu"],
+                  "mustache_tpu_torch.io.native": ["*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pandas", "h5py"],
     # the PyTorch/CUDA port (mustache_tpu_torch); its kernels build with
@@ -42,6 +43,7 @@ setup(
         "console_scripts": [
             "mustache-tpu = mustache_tpu.cli:main",
             "diff-mustache-tpu = mustache_tpu.diff_cli:main",
+            "mustache-tpu-torch = mustache_tpu_torch.cli:main",
         ]
     },
 )
