@@ -6,20 +6,26 @@ Gaussians on Hi-C / Micro-C maps) for PyTorch, with the fused blur-ladder
 sits beside the JAX package ``mustache_tpu``, which is its reference, and
 never imports JAX.
 
-It covers single-map intra-chromosomal detection at float32, from COO
-triplets (``detect_loops_coo`` / ``find_loops`` -> ``write_loops``) or
-from contact files through the CLI (``python -m mustache_tpu_torch``,
-``mustache-tpu-torch``: text, HiC-Pro, .hic, and .cool / .mcool where
-h5py is installed). What is still to port is listed in ROADMAP.md.
+It covers intra-chromosomal detection at float32, single-map and
+differential: from COO triplets (``detect_loops_coo`` / ``find_loops`` ->
+``write_loops``; ``detect_diff_loops_coo`` / ``find_diff_loops`` for two
+conditions) or from contact files through the CLIs (``python -m
+mustache_tpu_torch``, ``mustache-tpu-torch``; ``python -m
+mustache_tpu_torch.diff_cli``, ``diff-mustache-tpu-torch``: text, HiC-Pro,
+.hic, and .cool / .mcool where h5py is installed). What is still to port
+is listed in ROADMAP.md.
 """
 
 from mustache_tpu_torch.config import DetectionConfig
+from mustache_tpu_torch.diff import detect_diff_loops_coo, find_diff_loops
 from mustache_tpu_torch.pipeline import Loop, detect_loops_coo, find_loops, write_loops
 
 __all__ = [
     "DetectionConfig",
     "Loop",
+    "detect_diff_loops_coo",
     "detect_loops_coo",
+    "find_diff_loops",
     "find_loops",
     "write_loops",
 ]

@@ -126,11 +126,18 @@ def _box_counts_band(cs_flat, x, y, s, smax: int, N: int, Dl: int):
 
 def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
                      band_c, ceil_table, ceil_max: int, st: float,
-                     log_pt: float, K: int):
+                     log_pt: float, K: int, extras=()):
     """Fixed-capacity candidate table from band-space detection state: BH
     FDR (exact sort mode), selection, sparsity/enrichment filters and the
     exported 3x3 neighbourhoods for host clustering
-    (mustache.py:774-841)."""
+    (mustache.py:774-841).
+
+    ``extras``: tuples ``(name, band_arr, inside_fill, outside_fill)``,
+    each exported as ``neigh_<name>`` over the candidate neighbourhoods,
+    with ``inside_fill`` at in-matrix cells beyond the band and
+    ``outside_fill`` outside the matrix (``mustache_tpu/detect.py:489-494,
+    679-683``; the differential path carries its pair p and both maps'
+    best responses this way)."""
     N, Dl = geom.N, geom.Dl
     found = band_nz & (band_logp < _INF)
     n_tested = found.sum(dtype=torch.int32)
@@ -196,7 +203,7 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
     neigh_sigidx = torch.where(in_band, band_sigidx[nxc, ndc], -1)
 
     i32 = torch.int32
-    return {
+    out = {
         "n_tested": n_tested,
         "sig_count": sig_count,
         "cand_x": cx.to(i32),
@@ -210,6 +217,23 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
         "neigh_logq": neigh_logq,
         "neigh_sigidx": neigh_sigidx.to(torch.int16),
     }
+    for name, arr, inside_fill, outside_fill in extras:
+        out["neigh_" + name] = torch.where(
+            in_band, arr[nxc, ndc],
+            torch.where(inside, inside_fill, outside_fill).to(arr.dtype))
+    return out
+
+
+def _slice_support(geom: _BandGeom, band_slice: torch.Tensor, d_px: int):
+    """Support mask, its count and the sentinel-filled map of one block in
+    band space, from its normalized band slice ``[N, >= Dl]``: the shear
+    of :func:`_preamble`'s dense outputs, without the dense block."""
+    bs = torch.where(geom.band_validl, band_slice[:, :geom.Dl], 0.0)
+    nzb = geom.band_validl & (bs != 0) & (geom.band_dl >= 4)
+    band_c = torch.where(geom.band_dl <= 4, SENTINEL, bs)
+    band_c = torch.where(geom.band_dl >= d_px + 1, SENTINEL, band_c)
+    band_c = torch.where(geom.band_validl, band_c, 0.0)
+    return nzb, nzb.sum(dtype=torch.int32), band_c
 
 
 def _detect_one(band_state, band_slice: torch.Tensor, *, det_ceil,
@@ -219,17 +243,9 @@ def _detect_one(band_state, band_slice: torch.Tensor, *, det_ceil,
     ``[N, >= Dl]`` (the band-state + band-slice branch of the JAX
     ``_detect_one``). The support mask and sentinel map come from the
     slice, so the dense block is never read here."""
-    N = band_slice.shape[0]
     dev = band_slice.device
-    geom = _BandGeom(N, d_px, dev)
-    Dl = geom.Dl
-    bs = torch.where(geom.band_validl, band_slice[:, :Dl], 0.0)
-    nzb = geom.band_validl & (bs != 0) & (geom.band_dl >= 4)
-    nz_count = nzb.sum(dtype=torch.int32)
-    # sentinel map in band space == shear of _preamble's dense fill
-    band_c = torch.where(geom.band_dl <= 4, SENTINEL, bs)
-    band_c = torch.where(geom.band_dl >= d_px + 1, SENTINEL, band_c)
-    band_c = torch.where(geom.band_validl, band_c, 0.0)
+    geom = _BandGeom(band_slice.shape[0], d_px, dev)
+    nzb, nz_count, band_c = _slice_support(geom, band_slice, d_px)
 
     # log p from the best response and the per-plane exponential fit:
     # detections have L > 0, so |L| == best_v and logp = -(v - loc)/scale

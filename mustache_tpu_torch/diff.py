@@ -1,0 +1,495 @@
+"""Differential loop detection (two conditions) on the card.
+
+Torch port of the fused-kernel, device-normalize path of
+``mustache_tpu/diff.py`` (``diff_mustache`` semantics, diff_mustache.py:
+260-569). Both conditions' normalized bands live on the device; each batch
+of blocks is sliced and densified from both, and the two conditions' blocks
+go through ONE launch of the fused ladder/DoG/NMS kernel as a stacked
+``[2B]`` batch: condition 1's blocks in slots ``0..B-1``, condition 2's in
+``B..2B-1`` (``mustache_tpu/diff.py:337-357``). A pad slot (start -1) is
+skipped by the kernel in both halves, so pad slots may sit mid-batch; the
+state is split by slot, never by validity.
+
+The difference map ``cs1 - cs2`` on the joint support needs only blur
+planes 1 and 2 of each octave: the reference fits its folded-normal
+differential p ONCE per octave and never rolls that plane
+(diff_mustache.py:337). Those 4 blurs per block run as the plain version's
+two f32 ``conv2d`` passes (``kernels/fused_ladder.py::_blur_octave``), then
+the per-octave two-sided p is taken over the joint support
+(``mustache_tpu/diff.py:384-412``). Per map, log p is recovered from the
+kernel's per-plane partials with NaN scrubbed to p = 1, each detection is
+paired with the differential p of its octave, and the candidate tables
+export ``pair``, ``v1`` and ``v2`` over every 3x3 neighbourhood
+(``mustache_tpu/diff.py:173-263``). The host finish, the regrow and the
+block loop are copies of ``mustache_tpu/diff.py:485-566, 607-624,
+653-855`` (device-normalize branch).
+
+Not ported yet, and raising ``NotImplementedError`` before the device is
+resolved (ROADMAP Queue 1): ``precision="float64"``, ``exact_normalize``
+(host normalize) and ``runner`` (sharding). Like the port's single-map
+path, the last batch of a chromosome is not padded to the batch size.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from mustache_tpu_torch.bandnorm import (
+    bucket_rows, normalize_band_device, pad_exceptions,
+)
+from mustache_tpu_torch.config import (
+    DetectionConfig, block_mask_sizes, chunk_grid, clamp_distance_filter,
+)
+from mustache_tpu_torch.detect import (
+    SENTINEL, _BandGeom, _band_candidates, _cluster_components, _out_spec,
+    _pack_batched, _preamble, _slice_support, band_width, build_detector,
+    check_precision, dense_from_band, out_shapes as single_out_shapes,
+    unpack_block,
+)
+from mustache_tpu_torch.device import resolve_device
+from mustache_tpu_torch.kernels import fused_ladder
+from mustache_tpu_torch.pipeline import _batch_size, stream_band_to_device
+from mustache_tpu_torch.scalespace import LadderSpec
+
+_INF = float("inf")
+
+
+def diff_planes(spec: LadderSpec) -> list[int]:
+    """Ladder rows of the difference map's blurs: planes 1 and 2 of each
+    octave (``mustache_tpu/diff.py:84-85``)."""
+    bpo = spec.planes_per_octave + 3
+    return [o * bpo + k for o in range(len(spec.octave_values))
+            for k in (1, 2)]
+
+
+def band_of(x: torch.Tensor, Dl: int, fill) -> torch.Tensor:
+    """Band image ``[..., N, Dl]`` of dense ``[..., N, N]`` maps, ``band[i,
+    d] = x[i, i+d]``, with ``fill`` where ``i + d >= N``: the flat
+    ``[N, N+1]`` reinterpret of ``mustache_tpu/diff.py:375-382``."""
+    N = x.shape[-1]
+    lead = x.shape[:-2]
+    flat = x.reshape(*lead, N * N)
+    ext = torch.cat([flat, flat[..., :N]], dim=-1)
+    bnd = ext.reshape(*lead, N, N + 1)[..., :Dl]
+    r = torch.arange(N, device=x.device)
+    validl = (r[:, None] + r[None, :Dl]) < N
+    return torch.where(validl, bnd, fill)
+
+
+def diff_p_band(cs1, cs2, nz1, nz2, taps_sel, *, R: int, Dl: int, valid):
+    """Frozen per-octave differential p of each block, ``[B, n_oct, N,
+    Dl]`` in band layout (``mustache_tpu/diff.py:384-412``).
+
+    ``cs1``/``cs2``: sentinel-filled blocks ``[B, N, N]`` f32; ``nz1``/
+    ``nz2``: their supports (taken before the sentinel fill);
+    ``taps_sel``: the difference map's taps ``[2 n_oct, 2R+1]``
+    (:func:`diff_planes`); ``valid``: per-slot flags, host ints. The
+    difference ``cs1 - cs2`` on the joint support is blurred by the two
+    f32 conv passes of the plain version, planes ``2o`` and ``2o+1`` give
+    octave o's DoG plane, and its two-sided normal tail is taken with the
+    mean and variance on the joint support; a NaN p (zero variance) is 1.
+    Pad slots are left at 0 (their outputs are never read)."""
+    B, N, _ = cs1.shape
+    n_oct = taps_sel.shape[0] // 2
+    out = torch.zeros((B, n_oct, N, Dl), dtype=torch.float32,
+                      device=cs1.device)
+    for b in range(B):
+        if not valid[b]:
+            continue
+        nzd = nz1[b] & nz2[b]
+        cds = torch.where(nzd, cs1[b] - cs2[b], 0.0)
+        g = fused_ladder._blur_octave(fused_ladder._symmetric_pad(cds, R),
+                                      taps_sel, N)            # [2 n_oct, N, N]
+        gb = band_of(g, Dl, 0.0)
+        nzdb = band_of(nzd, Dl, False)
+        nzdbf = nzdb.to(torch.float32)
+        inv = 1.0 / nzd.sum(dtype=torch.int32).clamp(min=1).to(torch.float32)
+        for o in range(n_oct):
+            L = gb[2 * o] - gb[2 * o + 1]
+            mu = (L * nzdbf).sum() * inv
+            var = torch.where(nzdb, (L - mu) ** 2, 0.0).sum() * inv
+            phi = torch.special.ndtr((L - mu) / torch.sqrt(var))
+            phi = torch.where(torch.isnan(phi), 1.0, phi)
+            out[b, o] = torch.where(phi > 0.5, 1.0 - phi, phi) * 2.0
+    return out
+
+
+def _diff_detect_one(band_states, band_slices, diff_p, *, det_ceil,
+                     planes_per_octave: int, d_px: int, K: int, st: float,
+                     log_pt: float):
+    """One block's two candidate tables from the kernel's band state of
+    each condition ``(band_v, band_sig, locs, sums)``, the two normalized
+    band slices ``[N, >= Dl]`` and the block's differential p ``[n_oct, N,
+    Dl]`` (the band-state + band-slice branch of the JAX
+    ``_diff_detect_one``). Keys carry a ``1``/``2`` suffix, plus
+    ``nz1_count`` and ``nz2_count``."""
+    dev = band_slices[0].device
+    geom = _BandGeom(band_slices[0].shape[0], d_px, dev)
+    nzb, counts, band_c = {}, {}, {}
+    for m, sl in ((1, band_slices[0]), (2, band_slices[1])):
+        nzb[m], counts[m], band_c[m] = _slice_support(geom, sl, d_px)
+
+    states = {}
+    for m in (1, 2):
+        bv, bsig, locs, sums = band_states[m - 1]
+        inv_count = 1.0 / counts[m].clamp(min=1).to(torch.float32)
+        scales = sums * inv_count - locs
+        sig_c = bsig.clamp(min=0).long()
+        logp = -(bv - locs[sig_c]) / scales[sig_c]
+        # reference scrubs NaN p to 1 (diff_mustache.py:386-387)
+        logp = torch.where(torch.isnan(logp), 0.0, logp)
+        best_logp = torch.where(nzb[m] & (bsig >= 0), logp, _INF)
+        best_sig = torch.where(nzb[m], bsig, -1)
+        # differential p of the detection's octave, 2 where undetected
+        pair = torch.gather(diff_p, 0, (sig_c // planes_per_octave)[None])[0]
+        best_pair = torch.where(best_sig >= 0, pair, SENTINEL)
+        states[m] = (bv, best_logp, best_pair, best_sig)
+
+    out = {"nz1_count": counts[1], "nz2_count": counts[2]}
+    ceil_table = torch.as_tensor(det_ceil, dtype=torch.int64, device=dev)
+    # best DoG responses on each map's own support, 1 elsewhere
+    # (diff_mustache.py:446-449), exported on both maps' neighbourhoods
+    band_v = {m: torch.where(nzb[m], states[m][0], 1.0) for m in (1, 2)}
+    for m in (1, 2):
+        _, best_logp, best_pair, best_sig = states[m]
+        table = _band_candidates(
+            geom, band_logp=best_logp, band_sigidx=best_sig, band_nz=nzb[m],
+            band_c=band_c[m], ceil_table=ceil_table,
+            ceil_max=int(max(det_ceil)), st=st, log_pt=log_pt, K=K,
+            extras=(("pair", torch.where(nzb[m], best_pair, 1.0), 1.0, _INF),
+                    ("v1", band_v[1], 1.0, 1.0),
+                    ("v2", band_v[2], 1.0, 1.0)))
+        out.update({k + str(m): v for k, v in table.items()})
+    return out
+
+
+def out_shapes(K: int) -> dict:
+    """Per-block output layout of :func:`_diff_detect_one`: name ->
+    (shape, numpy dtype)."""
+    per_map = {k: v for k, v in single_out_shapes(K).items()
+               if k != "nz_count"}
+    per_map.update({f"neigh_{e}": ((K, 3, 3), np.float32)
+                    for e in ("pair", "v1", "v2")})
+    shapes = {"nz1_count": ((), np.int32), "nz2_count": ((), np.int32)}
+    for m in "12":
+        shapes.update({k + m: v for k, v in per_map.items()})
+    return shapes
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffBlockDetector:
+    """Differential detector for [n, n] blocks sliced from two
+    device-resident bands."""
+
+    cfg: DetectionConfig
+    spec: LadderSpec
+    n: int
+    K: int
+    taps: torch.Tensor       # [S, 2R+1] f32 ladder taps on the device
+    radii: torch.Tensor      # [S] int32 radius of each sigma, same device
+    out_spec: dict           # _out_spec layout for unpack_block
+
+    def fn_band(self, band1: torch.Tensor, band2: torch.Tensor,
+                starts) -> dict:
+        """Batch detection from both conditions' normalized bands (same
+        shape; rows >= max(starts)+n). A start of -1 is a pad slot: the
+        kernel skips it in both halves and its outputs are empty."""
+        cfg, spec, n = self.cfg, self.spec, self.n
+        d_px = cfg.distance_px
+        B = len(starts)
+        slices = torch.stack([band[max(s, 0): max(s, 0) + n]
+                              for band in (band1, band2) for s in starts])
+        valid_h = [int(s >= 0) for s in starts]
+        valid = torch.as_tensor(valid_h * 2, dtype=torch.int32,
+                                device=band1.device)
+        DB = band_width(n, d_px)
+        # each stage is a named profiler range: chip_smoke.py phase 7
+        # reads the device time under each from a trace
+        rf = torch.profiler.record_function
+        with rf("diff.preamble"):
+            cs, nz = _preamble(dense_from_band(slices), d_px)
+            nzf = nz.to(torch.float32)
+        # both conditions' blocks through ONE launch: slots [0, B) are
+        # condition 1, [B, 2B) condition 2
+        with rf("diff.fused_ladder"):
+            state = fused_ladder.fused_ladder_nms_batched(
+                cs, nzf, self.taps, R=spec.radius,
+                n_octaves=len(spec.octave_values),
+                planes_per_octave=spec.planes_per_octave, DB=DB,
+                valid=valid, radii=self.radii)
+        del nzf
+        with rf("diff.planes"):
+            dp = diff_p_band(cs[:B], cs[B:], nz[:B], nz[B:],
+                             self.taps[diff_planes(spec)], R=spec.radius,
+                             Dl=DB, valid=valid_h)
+        del cs, nz
+        st = float(np.float32(cfg.st))
+        log_pt = float(np.float32(math.log(cfg.pt)))
+        with rf("diff.epilogue"):
+            outs = [_diff_detect_one(
+                        (tuple(a[b] for a in state),
+                         tuple(a[B + b] for a in state)),
+                        (slices[b], slices[B + b]), dp[b],
+                        det_ceil=spec.det_ceil,
+                        planes_per_octave=spec.planes_per_octave, d_px=d_px,
+                        K=self.K, st=st, log_pt=log_pt)
+                    for b in range(B)]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def fn_band_packed(self, band1: torch.Tensor, band2: torch.Tensor,
+                       starts) -> torch.Tensor:
+        """``fn_band`` packed into one [B, F + I] buffer (one D2H); the
+        host rebuilds each block with ``unpack_block(out_spec, row)``."""
+        return _pack_batched(self.fn_band(band1, band2, starts))
+
+
+def build_diff_detector(cfg: DetectionConfig, n: int, *, device,
+                        max_candidates: int | None = None) -> DiffBlockDetector:
+    """Differential detector for [n, n] blocks on ``device``: the
+    single-map detector's gate, ladder and capacity with the diff
+    layout. Raises for configurations the port cannot run (see
+    ``detect.kernel_gate``)."""
+    d = build_detector(cfg, n, device=device, max_candidates=max_candidates)
+    return DiffBlockDetector(cfg=cfg, spec=d.spec, n=n, K=d.K, taps=d.taps,
+                             radii=d.radii, out_spec=_out_spec(out_shapes(d.K)))
+
+
+# ---------------------------------------------------------------------------
+# host finish (copied from mustache_tpu/diff.py:485-566)
+# ---------------------------------------------------------------------------
+
+def _finish_map(out, tag, *, start, spec):
+    """Cluster one condition's surviving candidates; returns rows with the
+    pair/v values needed for the differential call, or None when this map's
+    bail-outs fire."""
+    passing = (np.asarray(out[f"cand_valid{tag}"])
+               & np.asarray(out[f"pass_sparse{tag}"]))
+    if not passing.any():
+        return None, None
+    with_enrich = passing & np.asarray(out[f"pass_enrich{tag}"])
+    if not with_enrich.any():
+        return passing, None
+    cx = np.asarray(out[f"cand_x{tag}"])[with_enrich]
+    cy = np.asarray(out[f"cand_y{tag}"])[with_enrich]
+    nlq = np.asarray(out[f"neigh_logq{tag}"])[with_enrich]
+    nsi = np.asarray(out[f"neigh_sigidx{tag}"])[with_enrich]
+    npair = np.asarray(out[f"neigh_pair{tag}"])[with_enrich]
+    nv1 = np.asarray(out[f"neigh_v1{tag}"])[with_enrich]
+    nv2 = np.asarray(out[f"neigh_v2{tag}"])[with_enrich]
+    cands = [{"x": int(cx[i]), "y": int(cy[i]), "nlq": nlq[i],
+              "nsi": nsi[i], "npair": npair[i], "nv1": nv1[i],
+              "nv2": nv2[i]} for i in range(len(cx))]
+    det_sigmas = spec.det_sigmas
+    rows = []
+    for comp in _cluster_components(cands):
+        pixels = {}
+        for cd in comp:
+            for dx in (-1, 0, 1):
+                for dy in (-1, 0, 1):
+                    px, py = cd["x"] + dx, cd["y"] + dy
+                    pixels[(px, py)] = (
+                        float(cd["nlq"][dx + 1, dy + 1]),
+                        int(cd["nsi"][dx + 1, dy + 1]),
+                        float(cd["npair"][dx + 1, dy + 1]),
+                        float(cd["nv1"][dx + 1, dy + 1]),
+                        float(cd["nv2"][dx + 1, dy + 1]),
+                    )
+        ordered = sorted(pixels.items())
+        best = min(range(len(ordered)), key=lambda i: (ordered[i][1][0], i))
+        (px, py), (lq, si, pair, nv1_, nv2_) = ordered[best]
+        q = float(np.exp(np.float64(lq)))
+        sigma = det_sigmas[si] if si >= 0 else 1.0
+        rows.append((ordered[0][0],
+                     [px + start, py + start, q, sigma], pair, nv1_, nv2_))
+    rows.sort(key=lambda t: t[0])
+    return passing, rows
+
+
+def finish_diff_block(out: dict, *, start: int, cfg: DetectionConfig,
+                      spec: LadderSpec):
+    """Returns (loops1, diff_loops1, loops2, diff_loops2) row lists."""
+    empty = ([], [], [], [])
+    # the reference's two bail-outs (nz<50 at diff_mustache.py:262-267 and
+    # the >=10000-support FDR gate at :428-436) collapse into the stricter
+    # one: min_tested >= min_nz always
+    if int(out["nz1_count"]) < cfg.min_tested or \
+            int(out["nz2_count"]) < cfg.min_tested:
+        return empty
+
+    pass1, rows1 = _finish_map(out, "1", start=start, spec=spec)
+    pass2, rows2 = _finish_map(out, "2", start=start, spec=spec)
+    # joint bail-outs (diff_mustache.py:507-508, :519, :526)
+    if pass1 is None or pass2 is None:
+        return empty
+    if rows1 is None or rows2 is None:
+        return empty
+
+    def split(rows, own):
+        loops, diff_loops = [], []
+        for _, row, pair, nv1, nv2 in rows:
+            loops.append(row)
+            own_v, other_v = (nv1, nv2) if own == 1 else (nv2, nv1)
+            if pair < cfg.pt2 and own_v > other_v:
+                diff_loops.append(row)
+        return loops, diff_loops
+
+    loops1, diff1 = split(rows1, 1)
+    loops2, diff2 = split(rows2, 2)
+    return loops1, diff1, loops2, diff2
+
+
+def _maybe_regrow_diff(block_out: dict, cfg: DetectionConfig,
+                       rerun) -> dict:
+    """If either condition's candidate table overflowed, rerun this block
+    with a larger capacity (``mustache_tpu/diff.py:607-624``): the
+    reference selects ALL pixels with q < pt (diff_mustache.py:458,473).
+    ``rerun``: callable ``(capacity) -> block_out``."""
+    cap = cfg.max_candidates
+    while True:
+        sig = max(int(block_out["sig_count1"]),
+                  int(block_out["sig_count2"]))
+        if sig <= cap:
+            return block_out
+        cap = max(1 << (sig - 1).bit_length(), 2 * cap)
+        block_out = rerun(cap)
+
+
+# ---------------------------------------------------------------------------
+# per-chromosome orchestration
+# ---------------------------------------------------------------------------
+
+def _diff_bands(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig,
+                dev: torch.device):
+    """Both conditions' normalized bands on ``dev`` and what went up: one
+    compact upload per condition on a shared band shape, each normalized
+    with its OWN bin count (the window clipping at the diagonal tails
+    depends on it, ``mustache_tpu/diff.py:754-761``). Returns ``(bands,
+    uploads, n)`` with ``n`` the larger bin count."""
+    d_px = cfg.distance_px
+    n1 = int(max(x1.max(), y1.max())) + 1
+    n2 = int(max(x2.max(), y2.max())) + 1
+    n = max(n1, n2)
+    width = cfg.chunk_size
+    shape = (bucket_rows(max(n, width)), band_width(width, d_px))
+    bands, uploads = [], []
+    for x, y, v, n_own in ((x1, y1, v1, n1), (x2, y2, v2, n2)):
+        up = stream_band_to_device(x, y, v, shape, dev)
+        exc = (None if up.exceptions is None
+               else pad_exceptions(up.exceptions, shape[0]))
+        band, _ = normalize_band_device(up.band, n_own, cfg.resolution,
+                                        d_px, exceptions=exc,
+                                        packed4=up.packed4)
+        bands.append(band)
+        uploads.append(up)
+    return bands, uploads, n
+
+
+def _as_coo(x, y, v):
+    return (np.ascontiguousarray(x, dtype=np.int64),
+            np.ascontiguousarray(y, dtype=np.int64),
+            np.ascontiguousarray(v, dtype=np.float64))
+
+
+def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
+                          exact_normalize: bool = False, runner=None,
+                          device=None, log=None):
+    """Differential loop calls for one chromosome, both conditions, on
+    ``device``: the card by default ("cuda[:i]" runs the fused kernel);
+    ``device="cpu"`` runs its plain PyTorch version. Unported modes raise
+    ``NotImplementedError`` before the device is resolved. The inputs are
+    not modified. ``log``: optional callable taking one message string.
+
+    Returns a list of ``(bin1, bin2, q, scale, tag)`` in block order with
+    tag 1=loop1, 2=diffloop1, 3=loop2, 4=diffloop2
+    (diff_mustache.py:704-715)."""
+    if exact_normalize:
+        raise NotImplementedError(
+            "exact_normalize: host normalize not ported yet (ROADMAP Queue "
+            "1, normalize.py + f64/exact modes)")
+    if runner is not None:
+        raise NotImplementedError(
+            "runner: sharded runs not ported yet (ROADMAP Queue 1, "
+            "sharding.py)")
+    check_precision(cfg)
+    dev = resolve_device(device)
+    if len(v1) == 0 or len(v2) == 0:
+        return []
+    x1, y1, v1 = _as_coo(x1, y1, v1)
+    x2, y2, v2 = _as_coo(x2, y2, v2)
+
+    d_px = cfg.distance_px
+    # always chunk x chunk, zero-padded (diff_mustache.py:671)
+    width = cfg.chunk_size
+    det = build_diff_detector(cfg, width, device=dev)   # raises if unsupported
+    (band1, band2), uploads, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg, dev)
+
+    start, end = chunk_grid(n, width, d_px)
+    masks = block_mask_sizes(start, end, d_px)
+    nblocks = len(start)
+    # a block of the batch holds about 28 * n^2 bytes at its peak, in
+    # the stacked preamble: both conditions' widened slices, sentinel
+    # copies and temporaries, f32 and bool supports (0.74 GiB peak for
+    # the chr21 diff workload, B=6 at n=2000, bands included, on an
+    # NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.py phase 7). The
+    # difference planes and the epilogue run one block at a time: about
+    # 48 * n^2 bytes of conv scratch and 128 * n * Dl bytes of two
+    # tables' state once per batch.
+    B = _batch_size(cfg, nblocks, dev, per_block=28 * width * width,
+                    reserve=48 * width * width + 128 * width * band1.shape[1])
+    if log is not None:
+        log(f"n={n} blocks={nblocks} of {width}^2 batch={B} (stacked "
+            f"{2 * B} kernel slots) device={dev} "
+            + " ".join(f"cond{m} {up.describe()}"
+                       for m, up in ((1, uploads[0]), (2, uploads[1]))))
+
+    def run(d, idxs) -> np.ndarray:
+        # one packed D2H per batch
+        return d.fn_band_packed(band1, band2,
+                                [start[i] for i in idxs]).cpu().numpy()
+
+    def rerun_block(i, cap):
+        """Re-detect block i with a larger candidate capacity."""
+        d = build_diff_detector(cfg, width, device=dev, max_candidates=cap)
+        return unpack_block(d.out_spec, run(d, [i])[0])
+
+    rows = []
+    for b0 in range(0, nblocks, B):
+        idxs = list(range(b0, min(b0 + B, nblocks)))
+        packed = run(det, idxs)
+        for bi, i in enumerate(idxs):
+            block_out = _maybe_regrow_diff(
+                unpack_block(det.out_spec, packed[bi]), cfg,
+                lambda cap, i=i: rerun_block(i, cap))
+            groups = finish_diff_block(block_out, start=start[i], cfg=cfg,
+                                       spec=det.spec)
+            mask = masks[i]
+            for tag, group in zip((1, 2, 3, 4), groups):
+                for r in group:
+                    if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
+                        rows.append((int(r[0]), int(r[1]), float(r[2]),
+                                     float(r[3]), tag))
+    return rows
+
+
+def find_diff_loops(x1, y1, v1, x2, y2, v2, *, resolution: int = 5000,
+                    distance_bp: int = 2_000_000, pt: float = 0.2,
+                    pt2: float = 0.1, st: float = 0.88, sigma0: float = 1.6,
+                    octaves: int = 2, precision: str = "float32",
+                    device=None):
+    """One-call differential API (twin of :func:`find_loops`): two COO
+    contact maps in, ``(bin1, bin2, q, scale, tag)`` rows out, on
+    ``device`` (the card unless ``device="cpu"``). The caller's arrays are
+    copied and left untouched."""
+    cfg = DetectionConfig(
+        resolution=resolution,
+        distance_bp=clamp_distance_filter(distance_bp, resolution,
+                                          diff=True),
+        pt=pt, pt2=pt2, st=st, sigma0=sigma0, octaves=octaves,
+        precision=precision,
+    )
+    return detect_diff_loops_coo(
+        *(np.array(a) for a in (x1, y1, v1, x2, y2, v2)), cfg, device=device)

@@ -208,20 +208,17 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
                       len(staged))
 
 
-def _batch_size(cfg: DetectionConfig, n: int, Dl: int, nblocks: int,
-                device: torch.device) -> int:
-    """Blocks per batch. On CUDA, from free device memory: a block holds
-    about 16 * n^2 bytes at its peak (the f32 dense block and its
-    sentinel copy, the f32 support mask, the bool mask) plus about
-    64 * n * Dl bytes of band-sized epilogue state (the sort's keys and
-    int64 indices, ~20 [n, Dl] maps); half of the free memory is given to
-    a batch, at most 16 blocks. On the CPU, 2 (as the JAX package)."""
+def _batch_size(cfg: DetectionConfig, nblocks: int, device: torch.device,
+                per_block: int, reserve: int = 0) -> int:
+    """Blocks per batch. On CUDA, from free device memory: half of it,
+    less ``reserve`` bytes of per-batch scratch, over ``per_block`` bytes
+    a block holds at its peak; at most 16 blocks. On the CPU, 2 (as the
+    JAX package)."""
     if cfg.block_batch:
         return cfg.block_batch
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
-        per_block = 16 * n * n + 64 * n * Dl
-        cap = max(1, min(16, int(0.5 * free // per_block)))
+        cap = max(1, min(16, int((0.5 * free - reserve) // per_block)))
     else:
         cap = 2
     return min(cap, nblocks)
@@ -272,7 +269,12 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *,
     start, end = chunk_grid(n, width, d_px)
     masks = block_mask_sizes(start, end, d_px)
     nblocks = len(start)
-    B = _batch_size(cfg, width, band_shape[1], nblocks, dev)
+    # a block holds about 16 * n^2 bytes at its peak (the f32 dense block
+    # and its sentinel copy, the f32 support mask, the bool mask) plus
+    # about 64 * n * Dl bytes of band-sized epilogue state (the sort's
+    # keys and int64 indices, ~20 [n, Dl] maps)
+    B = _batch_size(cfg, nblocks, dev,
+                    per_block=16 * width * width + 64 * width * band_shape[1])
     if log is not None:
         log(f"n={n} blocks={nblocks} of {width}^2 batch={B} device={dev} "
             f"{upload.describe()}")

@@ -44,6 +44,7 @@ setup(
             "mustache-tpu = mustache_tpu.cli:main",
             "diff-mustache-tpu = mustache_tpu.diff_cli:main",
             "mustache-tpu-torch = mustache_tpu_torch.cli:main",
+            "diff-mustache-tpu-torch = mustache_tpu_torch.diff_cli:main",
         ]
     },
 )

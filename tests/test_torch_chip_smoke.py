@@ -145,3 +145,115 @@ def test_trace_device_time(tmp_path):
     by_cat, top = chip_smoke.trace_device_time(str(tmp_path))
     assert by_cat == {"kernel": 2.25, "gpu_memcpy": 0.1}
     assert top == [("k1", 2.0, 2), ("k2", 0.25, 1)]
+
+
+def test_diff_golden_comparison():
+    """Per tag as the single-map comparison; a differential row on one
+    side only passes only where the tie check says so."""
+    header, golden = chip_smoke.read_tsv(chip_smoke.GOLDEN_DIFF)
+    assert header.rstrip("\n").endswith("\tTAG") and len(golden) == 1099
+    assert {r[8] for r in golden} == set("1234")
+    assert chip_smoke.compare_diff_to_golden(golden, golden,
+                                             lambda r: False) == (1099, 0.0)
+    i = next(k for k, r in enumerate(golden) if r[8] == "2"
+             and not chip_smoke.math.isclose(float(r[6]), chip_smoke.PT,
+                                             rel_tol=chip_smoke.RTOL))
+    fewer = golden[:i] + golden[i + 1:]
+    seen = []
+    assert chip_smoke.compare_diff_to_golden(
+        fewer, golden, lambda r: seen.append(r) or True)[0] == 1098
+    assert seen == [golden[i]]
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_diff_to_golden(fewer, golden, lambda r: False)
+    # a loop row (tag 1) never passes by the tie check
+    j = next(k for k, r in enumerate(golden) if r[8] == "1"
+             and float(r[6]) < 0.05)
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_diff_to_golden(golden[:j] + golden[j + 1:],
+                                          golden, lambda r: True)
+
+
+def test_diff_near_tie():
+    pt2 = chip_smoke.PT2
+    assert chip_smoke.diff_near_tie(pt2 * (1 + 1e-3), 1.0, 0.5)
+    assert not chip_smoke.diff_near_tie(pt2 * 0.9, 1.0, 0.5)
+    assert chip_smoke.diff_near_tie(0.01, 0.5, 0.5 * (1 + 1e-4))
+    assert not chip_smoke.diff_near_tie(0.01, 0.5, 0.5 * (1 + 1e-3))
+
+
+def test_diff_tie_reads_the_port_block():
+    """The tie check re-detects the row's block on the CPU and finds the
+    port's call at its pixel; a row outside every block is no tie."""
+    import types
+
+    import torch
+
+    from mustache_tpu_torch import DetectionConfig
+    from mustache_tpu_torch.detect import unpack_block
+    from mustache_tpu_torch.diff import (
+        _diff_bands, _finish_map, build_diff_detector,
+    )
+    from synthetic import synthetic_hic
+
+    x1, y1, v1, _ = synthetic_hic(900, 100, seed=62, n_loops=15)
+    x2, y2, v2, _ = synthetic_hic(900, 100, seed=82, n_loops=15)
+    cfg = DetectionConfig(resolution=5000, distance_bp=500_000, pt=0.2,
+                          st=0.6, pt2=0.2)
+    cpu = torch.device("cpu")
+    (b1, b2), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg, cpu)
+    det = build_diff_detector(cfg, cfg.chunk_size, device=cpu)
+    packed = det.fn_band_packed(b1, b2, [0])         # the one block
+    calls = []
+
+    def fn_band_packed(band1, band2, starts):
+        calls.append(starts)
+        return packed
+    spy = types.SimpleNamespace(n=det.n, out_spec=det.out_spec,
+                                spec=det.spec, fn_band_packed=fn_band_packed)
+    _, rows = _finish_map(unpack_block(det.out_spec, packed.numpy()[0]), "1",
+                          start=0, spec=det.spec)
+    x, y, q, sigma = rows[0][1]
+    row = chip_smoke.diff_tsv_rows([(x, y, q, sigma, 2)], "chr1",
+                                   cfg.resolution)[0]
+    tie = chip_smoke.make_diff_tie(spy, b1, b2, [0], cfg.resolution)
+    said = []
+    orig = chip_smoke.say
+    chip_smoke.say = said.append
+    try:
+        assert tie(row) is chip_smoke.diff_near_tie(*rows[0][2:])
+        assert tie(["chr1", "99995000", "", "chr1", "99999000"] + row[5:]) \
+            is False
+    finally:
+        chip_smoke.say = orig
+    assert calls == [[0]]
+    assert len(said) == 1 and "port pair" in said[0]
+
+
+def test_trace_range_time(tmp_path):
+    """Kernels count for the range whose CPU span holds their launch,
+    matched by correlation id; kernels launched elsewhere, other ranges
+    and the GPU-side annotation spans count for nothing."""
+    import json
+
+    events = [
+        {"cat": "user_annotation", "name": "diff.planes", "ts": 100, "dur": 50},
+        {"cat": "user_annotation", "name": "other", "ts": 200, "dur": 50},
+        {"cat": "gpu_user_annotation", "name": "diff.planes", "ts": 100,
+         "dur": 900, "args": {}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 110,
+         "dur": 5, "args": {"correlation": 1}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 140,
+         "dur": 5, "args": {"correlation": 2}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 210,
+         "dur": 5, "args": {"correlation": 3}},
+        {"cat": "kernel", "name": "k1", "ts": 500, "dur": 1500,
+         "args": {"correlation": 1}},
+        {"cat": "kernel", "name": "k2", "ts": 700, "dur": 250,
+         "args": {"correlation": 2}},
+        {"cat": "kernel", "name": "k3", "ts": 900, "dur": 4000,
+         "args": {"correlation": 3}},
+    ]
+    (tmp_path / "t.json").write_text(json.dumps({"traceEvents": events}))
+    got = chip_smoke.trace_range_time(str(tmp_path),
+                                      ("diff.planes", "diff.epilogue"))
+    assert got == {"diff.planes": 1.75, "diff.epilogue": 0.0}

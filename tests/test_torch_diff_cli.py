@@ -1,0 +1,220 @@
+"""The port's differential CLI (``mustache_tpu_torch.diff_cli``) on the CPU
+against the JAX package's (``mustache_tpu.diff_cli``) on the same files:
+all four output files (``.loop1 .diffloop1 .loop2 .diffloop2``) with the
+same header and rows, anchors and scales exact and q within rtol 2e-4; a
+resume after an injected ingest fault; the error exits; the JSON log; and
+the modes that raise because they are not ported yet. The JAX side runs
+its BH in exact sort mode (the port's only mode) on one device."""
+
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mustache_tpu.detect as jdetect
+from mustache_tpu.diff_cli import main as jax_main
+from mustache_tpu_torch import faults
+from mustache_tpu_torch.diff_cli import SUFFIXES, main, parse_args
+from hic_writer import write_hic
+from synthetic import synthetic_hic
+
+RES = 5000
+CPU = ["--engine-platform", "cpu"]
+FLAGS = ["-r", "5kb", "-d", "700kb", "-pt", "0.2", "-st", "0.6", "-pt2",
+         "0.2"]
+
+
+def _jax_cli(argv):
+    mode, jdetect._BH_MODE = jdetect._BH_MODE, "sort"
+    try:
+        assert jax_main(argv + ["--engine-platform", "cpu",
+                                "--engine-mesh", "off"]) == 0
+    finally:
+        jdetect._BH_MODE = mode
+
+
+def _port_cli(argv):
+    """The port's CLI with its JSON log captured: (rc, events)."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(argv + CPU + ["--engine-json-log"])
+    return rc, [json.loads(ln) for ln in err.getvalue().splitlines()
+                if ln.startswith("{")]
+
+
+@pytest.fixture(scope="module")
+def text_runs(tmp_path_factory):
+    """Two conditions as text files (chr20 and chr21 each), through the
+    port's CLI and the JAX CLI."""
+    tmp = tmp_path_factory.mktemp("tdiffcli")
+    paths = []
+    for cond, base_seed in (("c1", 62), ("c2", 82)):
+        path = tmp / f"{cond}.txt"
+        with open(path, "w") as fh:
+            for chrom, off in (("chr20", 0), ("chr21", 1)):
+                x, y, v, _ = synthetic_hic(1100, 140, seed=base_seed + off,
+                                           n_loops=18)
+                for a, b, c in zip(x, y, v):
+                    fh.write(f"{chrom}\t{a*RES}\t{chrom}\t{b*RES}\t{c}\n")
+        paths.append(str(path))
+    argv = ["-f1", paths[0], "-f2", paths[1], "-ch", "20", "21"] + FLAGS
+    port, ref = str(tmp / "port"), str(tmp / "jax")
+    rc, events = _port_cli(argv + ["-o", port])
+    assert rc == 0
+    _jax_cli(argv + ["-o", ref])
+    return dict(paths=paths, argv=argv, port=port, ref=ref, events=events)
+
+
+def _rows(path):
+    lines = open(path).read().splitlines()
+    assert lines[0].startswith("BIN1_CHR\tBIN1_START")
+    return [ln.split("\t") for ln in lines[1:]]
+
+
+def _assert_files_match(port, ref):
+    total = {}
+    for sfx in SUFFIXES.values():
+        got, want = _rows(port + sfx), _rows(ref + sfx)
+        assert open(port + sfx).readline() == open(ref + sfx).readline()
+        assert [r[:6] + r[7:] for r in got] == [r[:6] + r[7:] for r in want]
+        np.testing.assert_allclose([float(r[6]) for r in got],
+                                   [float(r[6]) for r in want], rtol=2e-4)
+        total[sfx] = len(want)
+    assert all(total.values()), total
+    return total
+
+
+def test_diff_cli_matches_jax_cli(text_runs):
+    total = _assert_files_match(text_runs["port"], text_runs["ref"])
+    assert {r[0] for r in _rows(text_runs["port"] + ".loop1")} == {"20", "21"}
+    assert total[".loop1"] >= total[".diffloop1"]
+
+
+def test_diff_cli_json_log(text_runs):
+    """ingest and detect phases per chromosome, the plan, and a throughput
+    event that counts the chromosome's Mb twice (both conditions)."""
+    events = text_runs["events"]
+    kinds = [e["event"] for e in events]
+    assert kinds == ["ingest", "detect_plan", "detect", "throughput"] * 2
+    plan = events[1]["detail"]
+    assert "device=cpu" in plan and "cond1 band=u8" in plan
+    assert "cond2 band=u8" in plan and "stacked" in plan
+    tp = events[3]
+    assert tp["chromosome"] == "20" and tp["rows"] > 0
+    assert tp["mb"] == pytest.approx(2 * 1100 * RES / 1e6, abs=0.02)
+
+
+def test_diff_cli_hic_matches_jax_cli(tmp_path):
+    """Two v8 .hic files, chromosome discovery (no -ch), a KR vector."""
+    paths = []
+    for cond, seed in (("a", 12), ("b", 13)):
+        x, y, v, _ = synthetic_hic(1000, 150, seed=seed, n_loops=15)
+        kr = np.ones(1000)
+        kr[::97] = 2.0
+        paths.append(str(tmp_path / f"{cond}.hic"))
+        write_hic(paths[-1], [("chr21", 1000 * RES)], RES,
+                  {"chr21": (x, y, v)}, version=8,
+                  norms={("KR", "chr21"): kr})
+    argv = ["-f1", paths[0], "-f2", paths[1]] + FLAGS
+    port, ref = str(tmp_path / "t"), str(tmp_path / "j")
+    assert _port_cli(argv + ["-o", port])[0] == 0
+    _jax_cli(argv + ["-o", ref])
+    _assert_files_match(port, ref)
+    assert _rows(port + ".loop2")[0][0] == "chr21"
+
+
+def test_ingest_fault_then_resume(text_runs, tmp_path):
+    """A fault at chr21's ingest (no retries) fails that unit only; an
+    --engine-resume rerun redoes exactly it and gives the clean run's four
+    files, and leaves no part files behind."""
+    out = str(tmp_path / "r")
+    argv = text_runs["argv"] + ["-o", out, "--engine-resume",
+                                "--engine-ingest-retries", "0"]
+    faults.reset()
+    faults.arm("ingest", count=1, match="21")
+    try:
+        rc, events = _port_cli(argv)
+    finally:
+        faults.reset()
+    assert rc == 1
+    assert [e["unit"] for e in events if e["event"] == "unit_failed"] \
+        == ["21"]
+    for sfx in SUFFIXES.values():
+        assert "21" not in {r[0] for r in _rows(out + sfx)}
+    rc, events = _port_cli(argv)
+    assert rc == 0
+    assert [e["skipping"] for e in events if e["event"] == "resume"] \
+        == [["20"]]
+    assert sum(e["event"] == "detect" for e in events) == 1
+    for sfx in SUFFIXES.values():
+        assert open(out + sfx).read() == open(text_runs["port"] + sfx).read()
+    assert not [p for p in os.listdir(tmp_path) if ".part." in p]
+
+
+def test_parse_args_defaults():
+    a = parse_args(["-f1", "a.txt", "-f2", "b.txt", "-r", "5kb", "-o", "o"])
+    assert a.pt == 0.2 and a.pt2 == 0.1 and a.st == 0.88
+    assert a.platform == "" and a.precision == "float32"
+
+
+def test_diff_cli_missing_file(text_runs, tmp_path, capsys):
+    rc = main(["-f1", text_runs["paths"][0], "-f2", "/nonexistent", "-ch",
+               "21", "-r", "5kb", "-o", str(tmp_path / "o")] + CPU)
+    assert rc == 1
+    assert "Couldn't find the specified contact files" in capsys.readouterr().out
+
+
+def test_diff_cli_bad_resolution(text_runs, tmp_path, capsys):
+    rc = main(["-f1", text_runs["paths"][0], "-f2", text_runs["paths"][1],
+               "-ch", "21", "-r", "bogus", "-o", str(tmp_path / "o")] + CPU)
+    assert rc == 1
+    assert "Invalid resolution" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--engine-precision", "float64"], "float64"),
+    (["--engine-mesh", "block"], "sharding"),
+    (["--engine-mesh", "rowshard"], "sharding"),
+    (["--engine-nprocs", "2"], "sharding"),
+    (["--engine-coordinator", "localhost:1234"], "sharding"),
+    (["-ch2", "20"], "inter"),
+])
+def test_unported_modes_raise(text_runs, tmp_path, extra, match):
+    out = tmp_path / "o"
+    with pytest.raises(NotImplementedError, match=match):
+        main(["-f1", text_runs["paths"][0], "-f2", text_runs["paths"][1],
+              "-ch", "21", "-o", str(out)] + FLAGS + CPU + extra)
+    assert not [p for p in os.listdir(tmp_path)]
+
+
+def test_no_platform_flag_means_the_card(text_runs, tmp_path, monkeypatch):
+    """Without --engine-platform the diff CLI runs on the card; a host
+    without CUDA raises before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--engine-platform", "cuda"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["-f1", text_runs["paths"][0], "-f2", text_runs["paths"][1],
+                  "-ch", "21", "-o", str(tmp_path / "o")] + FLAGS + extra)
+    assert not os.listdir(tmp_path)
+
+
+def test_python_dash_m(text_runs, tmp_path):
+    """``python -m mustache_tpu_torch.diff_cli`` in a fresh interpreter
+    parses its flags and, with no platform flag on a host without CUDA,
+    stops with an error before any work."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = str(tmp_path / "m")
+    res = subprocess.run(
+        [sys.executable, "-m", "mustache_tpu_torch.diff_cli"]
+        + text_runs["argv"] + ["-o", out],
+        capture_output=True, text=True, timeout=300, env=env, cwd=root)
+    assert res.returncode != 0 and "cuda" in res.stderr.lower()
+    assert not os.listdir(tmp_path)

@@ -1,7 +1,8 @@
 """The port never imports JAX, the JAX package, pandas or h5py: checked in
 a fresh interpreter (this test process has JAX loaded already through
-conftest.py) that imports every module of the port and runs detection
-and the CLI on the CPU from a text file and a .hic file. h5py may load
+conftest.py) that imports every module of the port and runs detection,
+the CLI on the CPU from a text file and a .hic file, and the
+differential CLI on two text files. h5py may load
 only inside the .cool reader's call, which this script does not make."""
 
 import os
@@ -17,7 +18,8 @@ import numpy as np
 import mustache_tpu_torch as mt
 import mustache_tpu_torch.__main__  # noqa: F401
 from mustache_tpu_torch import (bandnorm, cli, config, detect, device,  # noqa: F401
-                                faults, manifest, pipeline, runlog, scalespace)
+                                diff, diff_cli, faults, manifest, pipeline,
+                                runlog, scalespace)
 from mustache_tpu_torch.io import bias, chrom, cool, hic, hicpro, native, text  # noqa: F401
 from mustache_tpu_torch.kernels import build, fused_ladder  # noqa: F401
 from synthetic import synthetic_hic
@@ -35,6 +37,15 @@ rcs = [cli.main(["-f", f, "-ch", "1", "-r", "5kb", "-d", "300kb", "-o",
                  os.path.join(tmp, "o.tsv"), "-pt", "0.1", "-st", "0.8",
                  "-norm", "NONE", "--engine-platform", "cpu"])
        for f in (txt, h)]
+x2, y2, v2, _ = synthetic_hic(400, 60, seed=4, n_loops=6)
+txt2 = os.path.join(tmp, "c2.txt")
+with open(txt2, "w") as fh:
+    for a, b, c in zip(x2, y2, v2):
+        fh.write(f"chr1\t{a * 5000}\tchr1\t{b * 5000}\t{c}\n")
+rcs.append(diff_cli.main(["-f1", txt, "-f2", txt2, "-ch", "1", "-r", "5kb",
+                          "-d", "300kb", "-o", os.path.join(tmp, "d"),
+                          "-pt", "0.1", "-st", "0.8",
+                          "--engine-platform", "cpu"]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mustache_tpu", "pandas", "h5py"))
 print("LOOPS", len(loops))
@@ -51,5 +62,5 @@ def test_port_imports_and_runs_without_jax():
     assert res.returncode == 0, res.stderr[-3000:]
     out = res.stdout.splitlines()
     assert "BAD_MODULES []" in out, res.stdout
-    assert "RCS [0, 0]" in out, res.stdout
+    assert "RCS [0, 0, 0]" in out, res.stdout
     assert int(next(l for l in out if l.startswith("LOOPS")).split()[1]) > 0
