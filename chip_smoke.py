@@ -6,13 +6,16 @@
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the fused ladder/DoG/NMS kernel from csrc/ with nvcc and print
+2. build the fused ladder/DoG/NMS kernel from csrc/ with nvcc (and the
+   native band fill and host normalize with g++, in parallel) and print
    ptxas's report for it (registers, shared memory, spills);
 3. kernel vs its plain PyTorch version on the card, on sentinel-filled
    synthetic blocks at both main-path block shapes (N=2000/DB=512 at 5 kb,
    N=4000/DB=2048 at 1 kb), and at the 5 kb shape with a 3-octave ladder
-   (radii up to 28: the kernel's path for sigmas of more than 32 taps),
-   B=4 with a pad slot in the middle: band_sig
+   (radii up to 28: the kernel's path for sigmas of more than 32 taps)
+   and a 4-octave one (radius 55, 174,144 B of shared memory, the largest
+   sigma0-1.6 ladder the kernel holds), B=4 with a pad slot in the
+   middle: band_sig
    equal on the support (a mismatch must be an f32 near-tie and sit on no
    significant candidate), band_v / locs / sums within rtol 2e-4, the pad
    slot empty, a second launch bit-identical; kernel, plain version and
@@ -54,7 +57,30 @@ Phases, in order; any failure exits non-zero:
    call at its representative pixel is an f32 near-tie (pair within rtol
    2e-3 of pt2, or v1 and v2 within rtol 2e-4); and the diff CLI with no
    platform flag from two v8 ``.hic`` files, whose four files must equal
-   the direct call's rows.
+   the direct call's rows;
+8. the ladder route and the host normalize (``detect.resolve_route``,
+   ``ladder.py``, ``normalize.py``): ``detect_loops_coo`` at float64 on
+   the chr21 workload against the JAX package's float64 golden
+   (tests/data/torch_port_chr21_5kb_f64_golden.tsv,
+   ``tools/make_torch_golden.py --slice f64_5kb``): rows in order, every
+   field but q exact, q within rtol 1e-9; route ``ladder`` and no fused
+   kernel launch; walls, peak device memory, the host normalize's time
+   and the device time by stage (preamble, blur, scan, epilogue) from a
+   profiled run; the CLI with ``--engine-precision float64`` from phase
+   5's text file, held to the same golden, and from its ``.hic`` (which
+   stores float32 counts), rows exact and q within rtol 2e-4;
+   ``detect_diff_loops_coo`` at
+   float64 on the two-condition workload against the float64 diff golden
+   (``--slice diff_f64_5kb``) per tag; ``exact_normalize=True`` at
+   float32 (host band, one fused kernel launch): the 290 golden rows, q
+   held under phase 4's rule to the JAX exact-normalize golden
+   (``--slice exact_5kb``); ``use_pallas="off"`` (the f32 ladder route)
+   against the 290-row golden under phase 4's rule, timed against the
+   kernel route, and the two routes'
+   detection state of the 6 blocks under CUDA events; and sigma0 1.6
+   with 5 octaves (radius 110, beyond the kernel's shared memory) on the
+   ladder route, held to the fused kernel's plain version on the card
+   under phase 4's rule.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -86,6 +112,12 @@ GOLDEN = os.path.join(ROOT, "tests", "data",
 GOLDEN_1KB = os.path.join(ROOT, "tests", "data", "torch_port_1kb_golden.tsv")
 GOLDEN_DIFF = os.path.join(ROOT, "tests", "data",
                            "torch_port_chr21_5kb_diff_golden.tsv")
+GOLDEN_F64 = os.path.join(ROOT, "tests", "data",
+                          "torch_port_chr21_5kb_f64_golden.tsv")
+GOLDEN_EXACT = os.path.join(ROOT, "tests", "data",
+                            "torch_port_chr21_5kb_exact_golden.tsv")
+GOLDEN_DIFF_F64 = os.path.join(ROOT, "tests", "data",
+                               "torch_port_chr21_5kb_diff_f64_golden.tsv")
 # the chr21 5 kb workload (bench.py::build_workload) and the 1 kb slice
 # (bench.py::build_workload_1kb): synthetic_hic args and kwargs
 CHR21 = ((9629, 400), dict(seed=2021, n_loops=300, loop_strength=3.0))
@@ -104,7 +136,9 @@ HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 SHAPES = [("5kb", 2000, 400, 5000, 5000, [0, 1000, 0, 3000], (1.6, 3.2)),
           ("1kb", 4000, 2000, 1000, 8000, [0, 2000, 0, 4000], (1.6, 3.2)),
           ("5kb-3oct", 2000, 400, 5000, 5000, [0, 1000, 0, 3000],
-           (1.6, 3.2, 6.4))]
+           (1.6, 3.2, 6.4)),
+          ("5kb-4oct", 2000, 400, 5000, 5000, [0, 1000, 0, 3000],
+           (1.6, 3.2, 6.4, 12.8))]
 VALID = [1, 1, 0, 1]
 
 
@@ -633,7 +667,9 @@ def phase_fill_and_h2d(dev, x, y, v, shape, label):
     return rep
 
 
-def phase_cli_files(dev):
+def phase_cli_files(dev, workdir):
+    """Phase 5; the contact files it writes stay in ``workdir`` for phase
+    8."""
     from mustache_tpu_torch.bandnorm import bucket_rows
     from mustache_tpu_torch.detect import band_width
     from mustache_tpu_torch.io import native
@@ -644,7 +680,7 @@ def phase_cli_files(dev):
     rep = phase_fill_and_h2d(dev, x, y, v, (bucket_rows(n_bins),
                                             band_width(2000, d_px)), "5")
     _, golden = read_tsv(GOLDEN)
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(workdir) as tmp:
         paths = {"text": os.path.join(tmp, "chr21.txt"),
                  "hic": os.path.join(tmp, "chr21.hic")}
         t0 = time.perf_counter()
@@ -691,7 +727,7 @@ def phase_cli_files(dev):
 
         # one more .hic run with --engine-profile-dir: the device time of
         # the CLI's detect phase, from the trace the flag writes
-        prof_dir = os.path.join(tmp, "trace")
+        prof_dir = os.path.join(tmp, "trace5")
         rc, events, wall = run_cli(
             ["-f", paths["hic"], "-ch", "chr21", "-r", "5kb", "-o", out,
              "-pt", str(PT), "-st", str(ST), "--engine-profile-dir",
@@ -1104,24 +1140,315 @@ def phase_diff(dev):
                 cli_diff_launches=cli_launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+F64_RTOL = 1e-9       # float64 against the JAX package's float64 golden
+
+
+def compare_exact(rows, golden, label, ncols=8, rtol=F64_RTOL):
+    """Rows equal in order, every field but q exact, q within ``rtol``;
+    returns the q max rel err."""
+    if len(rows) != len(golden):
+        fail(f"{label}: {len(rows)} rows, golden {len(golden)}")
+    worst = 0.0
+    for r, g in zip(rows, golden):
+        if r[:6] != g[:6] or r[7:ncols] != g[7:ncols]:
+            fail(f"{label}: row {r} != golden {g}")
+        qr, qg = float(r[6]), float(g[6])
+        worst = max(worst, abs(qr - qg) / qg)
+    if worst > rtol:
+        fail(f"{label}: q max rel err {worst:.3g} > {rtol}")
+    return worst
+
+
+def loops_tsv_rows(loops, chrom, res):
+    """Loop objects as the TSV fields write_loops gives them."""
+    return [[chrom, str(lp.bin1 * res), str((lp.bin1 + 1) * res), chrom,
+             str(lp.bin2 * res), str((lp.bin2 + 1) * res), f"{lp.q}",
+             f"{lp.scale}"] for lp in loops]
+
+
+def timed_runs(fn, n_warm=3):
+    """(result, cold wall, warm walls, peak device memory) of ``fn``, the
+    card synchronized around each call; the later results must equal the
+    first."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = fn()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    warm = []
+    for _ in range(n_warm):
+        t0 = time.perf_counter()
+        again = fn()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        if again != first:
+            fail("a warm rerun gave other rows")
+    return first, cold, warm, torch.cuda.max_memory_allocated()
+
+
+@contextlib.contextmanager
+def plain_kernel_route():
+    """Every configuration on the kernel route, and the kernel route on the
+    fused kernel's plain version: the check that holds the ladder route to
+    the plain version, never a path of the program."""
+    import mustache_tpu_torch.detect as D
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+
+    saved = D.resolve_route, fl.fused_ladder_nms_batched
+
+    def plain(cs, nzf, kernels, *, radii=None, **kw):
+        return fl.fused_ladder_nms_reference(cs, nzf, kernels, **kw)
+
+    D.resolve_route = lambda cfg: "kernel"
+    fl.fused_ladder_nms_batched = plain
+    try:
+        yield
+    finally:
+        D.resolve_route, fl.fused_ladder_nms_batched = saved
+
+
+def phase_ladder_route(dev, workdir):
+    """Phase 8: the ladder route and the host normalize on the card."""
+    from mustache_tpu_torch import (
+        DetectionConfig, detect_diff_loops_coo, detect_loops_coo,
+    )
+    from mustache_tpu_torch.bandnorm import bucket_rows
+    from mustache_tpu_torch.detect import (
+        _BandGeom, _preamble, _slice_support, band_width, build_detector,
+        dense_from_band,
+    )
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from mustache_tpu_torch.ladder import ladder_best
+    from mustache_tpu_torch.pipeline import fill_host_band
+
+    rep = {}
+    t_phase = time.perf_counter()
+    (n_bins, d_px), _ = CHR21
+    x, y, v = workload(CHR21)
+    cfg = DetectionConfig(resolution=5000, distance_bp=2_000_000, pt=PT,
+                          st=ST)
+    f64 = cfg.with_(precision="float64")
+    _, golden = read_tsv(GOLDEN)
+    _, golden64 = read_tsv(GOLDEN_F64)
+
+    # (a) float64 through detect_loops_coo on the card, against the JAX
+    # package's float64 golden; the fused kernel must not launch
+    logs = []
+    fl.LAUNCHES = 0
+    loops, cold, warm, peak = timed_runs(
+        lambda: detect_loops_coo(x, y, v, f64, log=logs.append))
+    if fl.LAUNCHES:
+        fail(f"float64 launched the fused kernel {fl.LAUNCHES} times")
+    if "device=cuda" not in logs[0] or "route=ladder" not in logs[0]:
+        fail(f"float64 did not take the ladder route on the card: {logs[0]}")
+    err64 = compare_exact(loops_tsv_rows(loops, "chr21", 5000), golden64,
+                          "float64 chr21")
+    host_norm_ms = host_ms(lambda: fill_host_band(
+        x, y, v, f64, (bucket_rows(n_bins), band_width(2000, d_px)), n_bins,
+        normalize=True, exact=False), reps=3)
+    names = ("detect.preamble", "ladder.blur", "ladder.scan",
+             "detect.epilogue")
+    ranges, busy, top = profile_ranges(
+        lambda: detect_loops_coo(x, y, v, f64), names)
+    say(f"[8] {logs[0]}")
+    say(f"[8] float64 chr21 5 kb: {len(loops)} rows equal to the JAX "
+        f"float64 golden ({len(golden64)}; q max rel err {err64:.3g}); "
+        f"fused kernel launches 0; wall cold {cold:.3f} s, warm "
+        f"{' '.join(f'{w:.3f}' for w in warm)} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; host normalize (native, f64 band) "
+        f"{host_norm_ms:.1f} ms")
+    if ranges is None:
+        say("[8] profiled float64 run: not measured (no device time)")
+    else:
+        say(f"[8] profiled float64 run: {busy:.2f} ms of kernels; "
+            + ", ".join(f"{k} {val:.2f} ms" for k, val in ranges.items()))
+        for name, kms, calls in top:
+            say(f"[8]   {kms:8.3f} ms {calls:5d}x {name[:90]}")
+    rep.update(f64_rows=len(loops), f64_q_max_rel_err=err64,
+               f64_cold_s=cold, f64_warm_s=sorted(warm)[1],
+               f64_peak_mem_gib=peak / 2**30, f64_host_normalize_ms=host_norm_ms,
+               f64_profile_ms=ranges, f64_profile_kernel_ms=busy)
+
+    # (b) the CLI at float64 from phase 5's files: the text file holds the
+    # counts exactly (repr) and is held to the float64 golden; the v8
+    # .hic stores them as float32, so its rows (anchors, scales, order)
+    # are exact and q agrees to the float32 rounding of the input
+    out = os.path.join(workdir, "loops64.tsv")
+    for label, path, rtol in (("text", "chr21.txt", F64_RTOL),
+                              ("hic", "chr21.hic", RTOL)):
+        fl.LAUNCHES = 0
+        rc, events, wall = run_cli(
+            ["-f", os.path.join(workdir, path), "-ch", "chr21", "-r", "5kb",
+             "-o", out, "-pt", str(PT), "-st", str(ST),
+             "--engine-precision", "float64"])
+        plan = event(events, "detect_plan")["detail"]
+        if rc != 0 or fl.LAUNCHES or "route=ladder" not in plan \
+                or "device=cuda" not in plan:
+            fail(f"float64 CLI ({label}): rc {rc}, launches {fl.LAUNCHES}, "
+                 f"plan {plan}")
+        err_cli = compare_exact(read_tsv(out)[1], golden64,
+                                f"float64 CLI ({label})", rtol=rtol)
+        say(f"[8] CLI --engine-precision float64 from {label}: {plan}; rows "
+            f"equal to the float64 golden (q max rel err {err_cli:.3g}, "
+            f"held to {rtol:g}); wall {wall:.3f} s, ingest "
+            f"{event(events, 'ingest')['seconds']:.3f} s, detect "
+            f"{event(events, 'detect')['seconds']:.3f} s")
+        rep[f"f64_cli_{label}_wall_s"] = wall
+        rep[f"f64_cli_{label}_detect_s"] = event(events, "detect")["seconds"]
+
+    # (c) float64 differential calling against the JAX float64 diff golden
+    x2, y2, v2 = workload(CHR21_COND2)
+    dlogs = []
+    fl.LAUNCHES = 0
+    rows, dcold, dwarm, dpeak = timed_runs(
+        lambda: detect_diff_loops_coo(x, y, v, x2, y2, v2,
+                                      f64.with_(pt2=PT2), log=dlogs.append),
+        n_warm=1)
+    if fl.LAUNCHES or "route=ladder" not in dlogs[0]:
+        fail(f"float64 diff: launches {fl.LAUNCHES}, plan {dlogs[0]}")
+    got = diff_tsv_rows(rows, "chr21", 5000)
+    _, gdiff = read_tsv(GOLDEN_DIFF_F64)
+    errd = 0.0
+    for t in "1234":
+        errd = max(errd, compare_exact([r for r in got if r[8] == t],
+                                       [r for r in gdiff if r[8] == t],
+                                       f"float64 diff tag {t}", ncols=9))
+    say(f"[8] {dlogs[0]}")
+    say(f"[8] float64 diff chr21 5 kb: {len(got)} rows equal to the JAX "
+        f"float64 diff golden per tag (q max rel err {errd:.3g}); wall "
+        f"cold {dcold:.3f} s, warm {dwarm[0]:.3f} s; peak device memory "
+        f"{dpeak / 2**30:.2f} GiB")
+    rep.update(f64_diff_rows=len(got), f64_diff_cold_s=dcold,
+               f64_diff_warm_s=dwarm[0], f64_diff_peak_mem_gib=dpeak / 2**30)
+
+    # (d) exact_normalize at float32: host band, the fused kernel once.
+    # Its rows are the 290 of the default golden; its q follows the exact
+    # normalize, so it is held to the JAX package's exact-normalize golden
+    elogs = []
+    fl.LAUNCHES = 0
+    eloops = detect_loops_coo(x, y, v, cfg, exact_normalize=True,
+                              log=elogs.append)
+    torch.cuda.synchronize()
+    if fl.LAUNCHES != 1 or "route=kernel" not in elogs[0] \
+            or "host_normalize=exact" not in elogs[0]:
+        fail(f"exact_normalize: launches {fl.LAUNCHES}, plan {elogs[0]}")
+    erows = loops_tsv_rows(eloops, "chr21", 5000)
+    if [r[:6] + r[7:] for r in erows] != [r[:6] + r[7:] for r in golden]:
+        fail("exact_normalize: rows differ from the 290-row golden")
+    _, golden_exact = read_tsv(GOLDEN_EXACT)
+    n_e, err_e = compare_to_golden(erows, golden_exact, tag="8")
+    worst_default = max(abs(float(r[6]) - float(g[6])) / float(g[6])
+                        for r, g in zip(erows, golden))
+    say(f"[8] exact_normalize float32: {elogs[0]}; the 290 golden rows; "
+        f"{n_e} equal to the JAX exact-normalize golden (q max rel err "
+        f"{err_e:.3g}; {worst_default:.3g} from the default-mode golden); "
+        f"fused kernel launches 1")
+    rep.update(exact_launches=1, exact_q_err=err_e,
+               exact_q_err_vs_default=worst_default)
+
+    # (e) float32 on the ladder route (use_pallas="off") against the
+    # golden, and its time against the kernel route's
+    off = cfg.with_(use_pallas="off")
+    ologs = []
+    fl.LAUNCHES = 0
+    oloops, ocold, owarm, opeak = timed_runs(
+        lambda: detect_loops_coo(x, y, v, off, log=ologs.append))
+    if fl.LAUNCHES or "route=ladder" not in ologs[0]:
+        fail(f"use_pallas=off: launches {fl.LAUNCHES}, plan {ologs[0]}")
+    n_o, err_o = compare_to_golden(
+        loops_tsv_rows(oloops, "chr21", 5000), golden, tag="8")
+    _, _, kwarm, _ = timed_runs(lambda: detect_loops_coo(x, y, v, cfg))
+    # the two routes' detection state of the same 6 blocks, CUDA events
+    det = build_detector(cfg, 2000, device=dev)
+    shape = (bucket_rows(n_bins), band_width(2000, d_px))
+    band = fill_host_band(x, y, v, cfg, shape, n_bins, normalize=True,
+                          exact=False)
+    band = torch.as_tensor(band, device=dev)
+    from mustache_tpu_torch.config import chunk_grid
+    starts, _ = chunk_grid(n_bins, 2000, d_px)
+    slices = torch.stack([band[s:s + 2000] for s in starts])
+    geom = _BandGeom(2000, d_px, dev)
+    nzb, counts, _ = _slice_support(geom, slices, d_px)
+    cs, nz = _preamble(dense_from_band(slices), d_px)
+    nzf = nz.to(torch.float32)
+    spec = det.spec
+    kw = dict(R=spec.radius, n_octaves=len(spec.octave_values),
+              planes_per_octave=spec.planes_per_octave, DB=geom.Dl)
+    kernel_ms = cuda_ms(lambda: fl.fused_ladder_nms_batched(
+        cs, nzf, det.taps, radii=det.radii, **kw), reps=10)
+    ladder_ms = cuda_ms(lambda: ladder_best(cs, nzb, counts, det.taps, spec,
+                                            geom), reps=5)
+    taps64 = det.taps.double()
+    ladder64_ms = cuda_ms(lambda: ladder_best(
+        cs.double(), nzb, counts, taps64, spec, geom), reps=3)
+    say(f"[8] use_pallas=off float32: {ologs[0]}; {n_o} rows equal to the "
+        f"golden (q max rel err {err_o:.3g}); fused kernel launches 0; "
+        f"wall cold {ocold:.3f} s, warm median {sorted(owarm)[1]:.3f} s "
+        f"against the kernel route's {sorted(kwarm)[1]:.3f} s; peak device "
+        f"memory {opeak / 2**30:.2f} GiB")
+    say(f"[8] detection state of the 6 blocks (N=2000, DB={geom.Dl}): fused "
+        f"kernel {kernel_ms:.4f} ms, ladder route f32 {ladder_ms:.3f} ms, "
+        f"ladder route f64 {ladder64_ms:.3f} ms (CUDA events)")
+    rep.update(off_rows=len(oloops), off_warm_s=sorted(owarm)[1],
+               kernel_route_warm_s=sorted(kwarm)[1],
+               state_kernel_ms=kernel_ms, state_ladder_f32_ms=ladder_ms,
+               state_ladder_f64_ms=ladder64_ms)
+    del band, slices, nzb, cs, nz, nzf
+    torch.cuda.empty_cache()
+
+    # (f) an oversized ladder (sigma0 1.6, 5 octaves: R=110) on the ladder
+    # route, held to the fused kernel's plain version on the card
+    big = cfg.with_(octaves=5)
+    R5 = build_detector(big, 2000, device=dev).spec.radius
+    blogs = []
+    fl.LAUNCHES = 0
+    t0 = time.perf_counter()
+    bloops = detect_loops_coo(x, y, v, big, log=blogs.append)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t0
+    if fl.LAUNCHES or "route=ladder" not in blogs[0]:
+        fail(f"5 octaves: launches {fl.LAUNCHES}, plan {blogs[0]}")
+    with plain_kernel_route():
+        plain_loops = detect_loops_coo(x, y, v, big)
+    n_b, err_b = compare_to_golden(
+        loops_tsv_rows(bloops, "chr21", 5000),
+        loops_tsv_rows(plain_loops, "chr21", 5000), tag="8")
+    say(f"[8] sigma0 1.6, 5 octaves (R={R5}, "
+        f"{fl.smem_bytes(R5, 5)} B > {fl.SMEM_LIMIT} B): {blogs[0]}; "
+        f"{len(bloops)} rows, {n_b} equal to the plain version's "
+        f"({len(plain_loops)}; q max rel err {err_b:.3g}); wall "
+        f"{t_big:.3f} s; phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    rep.update(oct5_rows=len(bloops), oct5_wall_s=t_big)
+    return rep
+
+
 def build_all():
-    """Build the fused kernel (nvcc) and the native band fill (g++) at the
-    same time, then load both."""
+    """Build the fused kernel (nvcc), the native band fill and the host
+    normalize (g++) at the same time, then load them."""
     from mustache_tpu_torch.io import native
     from mustache_tpu_torch.kernels import build, fused_ladder
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         jobs = [pool.submit(build.build, "fused_ladder"),
-                pool.submit(build.build, "band_fill", native.SRC)]
+                pool.submit(build.build, "band_fill", native.SRC),
+                pool.submit(build.build, "normalize", native.NORM_SRC)]
         for job in jobs:
             job.result()
     build.load("fused_ladder", fused_ladder.bind)
     native.library()
-    say(f"[2] built fused_ladder and band_fill in "
+    native.normalize_library()
+    say(f"[2] built fused_ladder, band_fill and normalize in "
         f"{time.perf_counter() - t0:.2f} s "
         f"({build.library_path('fused_ladder').name}, "
-        f"{build.library_path('band_fill', native.SRC).name})")
+        f"{build.library_path('band_fill', native.SRC).name}, "
+        f"{build.library_path('normalize', native.NORM_SRC).name}) in "
+        f"{build.build_dir()}")
     for ln in build.build_log("fused_ladder").splitlines():
         if "registers" in ln or "spill" in ln or "entry function" in ln:
             say(f"[2] {ln.strip()}")
@@ -1146,15 +1473,18 @@ def main():
 
     report = phase_kernel_vs_plain(dev)
     launches = phase_end_to_end()
-    files = phase_cli_files(dev)
-    slice_1kb = phase_1kb(dev)
-    diff = phase_diff(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        files = phase_cli_files(dev, workdir)
+        slice_1kb = phase_1kb(dev)
+        diff = phase_diff(dev)
+        ladder = phase_ladder_route(dev, workdir)
     say(json.dumps({"phase5_5kb": files, "phase6_1kb": slice_1kb,
-                    "phase7_diff": diff}))
+                    "phase7_diff": diff, "phase8_ladder": ladder}))
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
     r5, r1, r3 = report["5kb"], report["1kb"], report["5kb-3oct"]
+    r4 = report["5kb-4oct"]
     say(json.dumps({"kernels": [{
         "name": "fused_ladder_nms",
         "route": "cuda",
@@ -1178,6 +1508,11 @@ def main():
         "ms_3oct": r3["ms"],
         "plain_ms_3oct": r3["plain_ms"],
         "share_3oct": r3["share"],
+        "ms_4oct": r4["ms"],
+        "plain_ms_4oct": r4["plain_ms"],
+        "bound_ms_4oct": r4["bound_ms"],
+        "share_4oct": r4["share"],
+        "launches_exact_normalize": ladder["exact_launches"],
         "launches_cli_text": files["cli_text_launches"],
         "launches_cli_hic": files["cli_hic_launches"],
         "launches_1kb": slice_1kb["launches_1kb"],

@@ -8,9 +8,10 @@ parser, :963-1111 for the main flow); engine-only extras are prefixed
 ``--engine-*``. The run goes on the card unless ``--engine-platform cpu``
 asks for the CPU; without CUDA it raises.
 
-Not ported yet, and raising ``NotImplementedError`` before any work
-(ROADMAP Queue 1): ``--engine-precision float64`` (host normalize),
-``--engine-mesh block|rowshard``, ``--engine-nprocs > 1`` and
+``--engine-precision float64`` runs the float64 route: the host
+normalize and the ladder in float64 (``detect.resolve_route``). Not
+ported yet, and raising ``NotImplementedError`` before any work (ROADMAP
+Queue 1): ``--engine-mesh block|rowshard``, ``--engine-nprocs > 1`` and
 ``--engine-coordinator`` (sharding), and a ``-ch2`` that differs from
 ``-ch`` (inter-chromosomal).
 """
@@ -125,8 +126,10 @@ def build_parser(diff: bool = False) -> argparse.ArgumentParser:
     # engine extras (no reference counterpart)
     p.add_argument("--engine-precision", dest="precision", default="float32",
                    choices=["float32", "float64"],
-                   help="Numerics of the detection core. float32 runs on the "
-                        "card; float64 is not ported yet and raises.")
+                   help="Numerics of the detection core: float32 (the fused "
+                        "kernel, device normalize) or float64 (host "
+                        "normalize and the ladder in float64, the "
+                        "reference-exact golden mode).")
     p.add_argument("--engine-block-batch", dest="block_batch", type=int,
                    default=0, help="Blocks per device batch (0 = auto).")
     p.add_argument("--engine-profile-dir", dest="profile_dir", default="",
@@ -193,10 +196,6 @@ def parse_args(argv):
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for a mode the port does not have yet,
     before any work."""
-    if args.precision == "float64":
-        raise NotImplementedError(
-            "--engine-precision float64: host normalize not ported yet "
-            "(ROADMAP Queue 1, normalize.py + f64/exact modes)")
     if args.engine_mesh in ("block", "rowshard"):
         raise NotImplementedError(
             f"--engine-mesh {args.engine_mesh}: multi-device placement not "
@@ -295,13 +294,14 @@ def load_contacts(f, norm_method, chrm_size, distance_bp, chromosome,
 
 
 def warm(dev, log) -> None:
-    """Build the native band fill and, on the card, the fused kernel (the
-    port's counterpart of the JAX package's AOT warmup: nothing compiles
-    per shape here)."""
+    """Build the native band fill and host normalize and, on the card, the
+    fused kernel (the port's counterpart of the JAX package's AOT warmup:
+    nothing compiles per shape here)."""
     from mustache_tpu_torch.io import native
 
     with log.phase("warmup", device=str(dev)):
         native.library()
+        native.normalize_library()
         if dev.type == "cuda":
             from mustache_tpu_torch.kernels import build, fused_ladder
             build.load("fused_ladder", fused_ladder.bind)

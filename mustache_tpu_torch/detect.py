@@ -1,14 +1,25 @@
-"""Single-block scale-space loop detection: the port's device epilogue and
-host finish.
+"""Single-block scale-space loop detection: the port's two detection
+routes, its device epilogue and host finish.
 
-Torch port of the band-state path of ``mustache_tpu/detect.py``: the
-fused kernel (``kernels/fused_ladder.py``) gives each block's best DoG
-response and plane per band cell plus the per-plane exponential-fit
-partials; this module recovers log p, runs Benjamini-Hochberg FDR,
-candidate selection, the sparsity and enrichment filters and the 3x3
-neighbour export on the device, packs each batch into one buffer for one
-D2H, and finishes each block on the host (clustering and emission, copied
-from ``mustache_tpu/detect.py:981-1060``).
+Torch port of ``mustache_tpu/detect.py``. A configuration takes one of
+two routes (:func:`resolve_route`, the JAX ``_resolve_pallas``), decided
+from the configuration alone and the same on every device:
+
+* ``"kernel"`` (the float32 default): the fused kernel
+  (``kernels/fused_ladder.py``; its plain version on the CPU) gives each
+  block's best DoG response and plane per band cell plus the per-plane
+  exponential-fit partials, and log p is recovered from them;
+* ``"ladder"`` (float64, ``use_pallas="off"``, or a ladder too large for
+  the kernel's shared memory): the JAX package's XLA path in torch ops
+  (``ladder.py``), the blur ladder on the band and a scan over the DoG
+  planes that fits each plane and keeps the best log p, all in the
+  block's dtype.
+
+From either state this module runs Benjamini-Hochberg FDR, candidate
+selection, the sparsity and enrichment filters and the 3x3 neighbour
+export on the device, packs each batch into one buffer for one D2H, and
+finishes each block on the host (clustering and emission, copied from
+``mustache_tpu/detect.py:981-1060``).
 
 BH runs in the JAX package's exact "sort" mode only. Its default "count"
 mode exists to avoid a full sort on the TPU and misses overflow on tied
@@ -27,6 +38,7 @@ import torch.nn.functional as F
 
 from mustache_tpu_torch.config import DetectionConfig
 from mustache_tpu_torch.kernels import fused_ladder
+from mustache_tpu_torch.ladder import ladder_best
 from mustache_tpu_torch.scalespace import (
     LadderSpec, build_ladder, ladder_tensor, radii_tensor,
 )
@@ -163,18 +175,19 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
     cs_flat = torch.cumsum(band_nz.to(torch.int32), 0).reshape(-1)
     s1 = torch.where(cand_sigidx >= 0,
                      ceil_table[cand_sigidx.clamp(min=0).long()], 1).long()
-    c1 = (_box_counts_band(cs_flat, cx, cy, s1, ceil_max, N, Dl)
-          .to(torch.float32) / ((2 * s1 + 1) ** 2).to(torch.float32))
+    dt = band_logp.dtype
+    c1 = (_box_counts_band(cs_flat, cx, cy, s1, ceil_max, N, Dl).to(dt)
+          / ((2 * s1 + 1) ** 2).to(dt))
     s2 = 2 * s1
-    c2 = (_box_counts_band(cs_flat, cx, cy, s2, 2 * ceil_max, N, Dl)
-          .to(torch.float32) / ((2 * s2 + 1) ** 2).to(torch.float32))
+    c2 = (_box_counts_band(cs_flat, cx, cy, s2, 2 * ceil_max, N, Dl).to(dt)
+          / ((2 * s2 + 1) ** 2).to(dt))
     pass_sparse = (cx != 0) & ~((c1 < st) | (c2 < 0.6))
 
     # enrichment: candidate > 2 * nonzero-mean of its diagonal on the
     # sentinel-filled map (mustache.py:816-828); band column d IS diagonal d
     occupied = geom.band_validl & (band_c != 0)
     dmeans = (torch.where(occupied, band_c, 0.0).sum(0)
-              / occupied.sum(0).to(torch.float32))      # NaN when empty
+              / occupied.sum(0).to(band_c.dtype))       # NaN when empty
     cand_mean = dmeans[cd.clamp(0, Dl - 1)]
     cand_c = band_c.reshape(-1)[flat_idx]
     pass_enrich = cand_c > 2 * cand_mean                # NaN mean => False
@@ -226,14 +239,46 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
 
 def _slice_support(geom: _BandGeom, band_slice: torch.Tensor, d_px: int):
     """Support mask, its count and the sentinel-filled map of one block in
-    band space, from its normalized band slice ``[N, >= Dl]``: the shear
-    of :func:`_preamble`'s dense outputs, without the dense block."""
-    bs = torch.where(geom.band_validl, band_slice[:, :geom.Dl], 0.0)
+    band space, from its normalized band slice ``[N, >= Dl]`` (or of a
+    batch ``[B, N, >= Dl]``, counts ``[B]``): the shear of
+    :func:`_preamble`'s dense outputs, without the dense block."""
+    bs = torch.where(geom.band_validl, band_slice[..., :geom.Dl], 0.0)
     nzb = geom.band_validl & (bs != 0) & (geom.band_dl >= 4)
     band_c = torch.where(geom.band_dl <= 4, SENTINEL, bs)
     band_c = torch.where(geom.band_dl >= d_px + 1, SENTINEL, band_c)
     band_c = torch.where(geom.band_validl, band_c, 0.0)
-    return nzb, nzb.sum(dtype=torch.int32), band_c
+    return nzb, nzb.sum(dim=(-2, -1), dtype=torch.int32), band_c
+
+
+def _kernel_best(band_state, nzb, nz_count, *, scrub_nan: bool = False):
+    """``(best_v, best_logp, best_sigidx)`` of one block from the kernel's
+    band state ``(band_v, band_sig, locs, sums)``: log p from the best
+    response and the per-plane exponential fit (detections have L > 0, so
+    |L| == best_v and logp = -(v - loc)/scale). ``scrub_nan`` maps a NaN
+    log p to 0 (p = 1), as the differential reference does
+    (diff_mustache.py:386-387)."""
+    band_v, band_sig, locs, sums = band_state
+    inv_count = 1.0 / nz_count.clamp(min=1).to(band_v.dtype)
+    scales = sums * inv_count - locs
+    sig_c = band_sig.clamp(min=0).long()
+    logp = -(band_v - locs[sig_c]) / scales[sig_c]
+    if scrub_nan:
+        logp = torch.where(torch.isnan(logp), 0.0, logp)
+    best_logp = torch.where(nzb & (band_sig >= 0), logp, _INF)
+    return band_v, best_logp, torch.where(nzb, band_sig, -1)
+
+
+def _epilogue(geom: _BandGeom, best_logp, best_sigidx, nzb, nz_count,
+              band_c, *, det_ceil, K: int, st: float, log_pt: float):
+    """One block's candidate table from its band-space best state."""
+    ceil_table = torch.as_tensor(det_ceil, dtype=torch.int64,
+                                 device=best_logp.device)
+    out = _band_candidates(
+        geom, band_logp=best_logp, band_sigidx=best_sigidx, band_nz=nzb,
+        band_c=band_c, ceil_table=ceil_table, ceil_max=int(max(det_ceil)),
+        st=st, log_pt=log_pt, K=K)
+    out["nz_count"] = nz_count
+    return out
 
 
 def _detect_one(band_state, band_slice: torch.Tensor, *, det_ceil,
@@ -243,48 +288,32 @@ def _detect_one(band_state, band_slice: torch.Tensor, *, det_ceil,
     ``[N, >= Dl]`` (the band-state + band-slice branch of the JAX
     ``_detect_one``). The support mask and sentinel map come from the
     slice, so the dense block is never read here."""
-    dev = band_slice.device
-    geom = _BandGeom(band_slice.shape[0], d_px, dev)
+    geom = _BandGeom(band_slice.shape[0], d_px, band_slice.device)
     nzb, nz_count, band_c = _slice_support(geom, band_slice, d_px)
-
-    # log p from the best response and the per-plane exponential fit:
-    # detections have L > 0, so |L| == best_v and logp = -(v - loc)/scale
-    band_v, band_sig, locs, sums = band_state
-    inv_count = 1.0 / nz_count.clamp(min=1).to(torch.float32)
-    scales = sums * inv_count - locs
-    sig_c = band_sig.clamp(min=0).long()
-    logp = -(band_v - locs[sig_c]) / scales[sig_c]
-    best_logp = torch.where(nzb & (band_sig >= 0), logp, _INF)
-    best_sigidx = torch.where(nzb, band_sig, -1)
-
-    ceil_table = torch.as_tensor(det_ceil, dtype=torch.int64, device=dev)
-    out = _band_candidates(
-        geom, band_logp=best_logp, band_sigidx=best_sigidx, band_nz=nzb,
-        band_c=band_c, ceil_table=ceil_table, ceil_max=int(max(det_ceil)),
-        st=st, log_pt=log_pt, K=K)
-    out["nz_count"] = nz_count
-    return out
+    _, best_logp, best_sigidx = _kernel_best(band_state, nzb, nz_count)
+    return _epilogue(geom, best_logp, best_sigidx, nzb, nz_count, band_c,
+                     det_ceil=det_ceil, K=K, st=st, log_pt=log_pt)
 
 
-def out_shapes(K: int) -> dict:
+def out_shapes(K: int, dtype=np.float32) -> dict:
     """Per-block output layout of :func:`_detect_one`: name -> (shape,
-    numpy dtype)."""
-    i32, f32, b, i16 = np.int32, np.float32, np.bool_, np.int16
+    numpy dtype); the float leaves carry the run's dtype."""
+    i32, f, b, i16 = np.int32, dtype, np.bool_, np.int16
     return {
         "n_tested": ((), i32), "sig_count": ((), i32), "nz_count": ((), i32),
         "cand_x": ((K,), i32), "cand_y": ((K,), i32),
-        "cand_logq": ((K,), f32), "cand_sigidx": ((K,), i16),
+        "cand_logq": ((K,), f), "cand_sigidx": ((K,), i16),
         "cand_pass": ((K,), b), "cand_valid": ((K,), b),
         "pass_sparse": ((K,), b), "pass_enrich": ((K,), b),
-        "neigh_logq": ((K, 3, 3), f32), "neigh_sigidx": ((K, 3, 3), i16),
+        "neigh_logq": ((K, 3, 3), f), "neigh_sigidx": ((K, 3, 3), i16),
     }
 
 
 def _out_spec(shapes: dict) -> dict:
     """Host-side layout for :func:`_pack_batched`: ``key -> (shape, dtype,
     buffer, offset, size)``. Float leaves come first in the packed row,
-    int/bool leaves (as int32 bits) after them; keys walk in sorted order
-    within each part."""
+    int/bool leaves (as integer bits of the float width) after them; keys
+    walk in sorted order within each part."""
     spec = {}
     nf = sum(int(np.prod(s)) for s, dt in shapes.values()
              if np.issubdtype(dt, np.floating))
@@ -298,25 +327,31 @@ def _out_spec(shapes: dict) -> dict:
     return spec
 
 
+# integer type of each packed float width: int leaves ride as its bits
+_INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
 def _pack_batched(out: dict) -> torch.Tensor:
-    """Pack a batched output dict into ONE [B, F + I] float32 buffer:
-    float leaves, then int/bool leaves cast to int32 and bit-viewed as
-    float32, so a batch crosses to the host in one D2H. Layout matches
-    :func:`_out_spec`."""
+    """Pack a batched output dict into ONE [B, F + I] buffer of the float
+    leaves' dtype (float32, or float64 on the float64 route): float
+    leaves, then int/bool leaves cast to the integer of the same width and
+    bit-viewed as the float, so a batch crosses to the host in one D2H.
+    Layout matches :func:`_out_spec`."""
+    fdt = next(a.dtype for a in out.values() if a.dtype.is_floating_point)
     fparts, iparts = [], []
     for k in sorted(out):
         a = out[k]
         flat = a.reshape(a.shape[0], -1)
         if a.dtype.is_floating_point:
-            fparts.append(flat.to(torch.float32))
+            fparts.append(flat.to(fdt))
         else:
-            iparts.append(flat.to(torch.int32).view(torch.float32))
+            iparts.append(flat.to(_INT_OF[fdt]).view(fdt))
     return torch.cat(fparts + iparts, dim=1)
 
 
 def unpack_block(spec: dict, row: np.ndarray) -> dict:
-    """Rebuild one block's output dict from its packed float32 row."""
-    irow = row.view(np.int32)
+    """Rebuild one block's output dict from its packed row."""
+    irow = row.view(np.int32 if row.dtype == np.float32 else np.int64)
     out = {}
     for k, (shape, dtype, buf, off, size) in spec.items():
         src = row if buf == "f" else irow
@@ -325,32 +360,30 @@ def unpack_block(spec: dict, row: np.ndarray) -> dict:
     return out
 
 
-def check_precision(cfg: DetectionConfig) -> None:
-    """The port runs float32 only, on every device."""
-    if cfg.precision != "float32":
-        raise NotImplementedError(
-            f"precision={cfg.precision!r}: the port runs float32 only "
-            "(float64 is ROADMAP Queue 1, normalize.py + f64 modes)")
+def resolve_route(cfg: DetectionConfig) -> str:
+    """Which detection route a configuration takes, on every device (the
+    JAX ``_resolve_pallas``): ``"ladder"`` (torch ops, the JAX XLA path)
+    for float64, ``use_pallas="off"``, or a ladder the fused kernel cannot
+    hold (:func:`fused_ladder.kernel_fits`); else ``"kernel"``, the CUDA
+    kernel on the card and its plain version on the CPU. Decided from the
+    configuration alone, never from a failed build or launch."""
+    if cfg.precision not in ("float32", "float64"):
+        raise ValueError(f"precision must be float32 or float64, got "
+                         f"{cfg.precision!r}")
+    if cfg.precision == "float64" or cfg.use_pallas == "off":
+        return "ladder"
+    spec = build_ladder(cfg.octave_values)
+    if not fused_ladder.kernel_fits(spec.radius, cfg.octaves):
+        return "ladder"
+    return "kernel"
 
 
-def kernel_gate(cfg: DetectionConfig, device: torch.device) -> None:
-    """The port's gate (the JAX ``_resolve_pallas``): f32, and on CUDA a
-    ladder radius that fits the kernel's shared memory. Raises when the
-    configuration cannot run; there is no other device path to fall back
-    to."""
-    check_precision(cfg)
-    if device.type == "cuda":
-        if cfg.use_pallas == "off":
-            raise NotImplementedError(
-                "use_pallas='off' on CUDA: the port's device path is the "
-                "fused kernel")
-        spec = build_ladder(cfg.octave_values)
-        if not fused_ladder.kernel_fits(spec.radius, cfg.octaves):
-            raise ValueError(
-                f"ladder radius {spec.radius} ({cfg.octaves} octaves) needs "
-                f"{fused_ladder.smem_bytes(spec.radius, cfg.octaves)} B of "
-                f"shared memory; the kernel's limit is "
-                f"{fused_ladder.SMEM_LIMIT}")
+def thresholds(cfg: DetectionConfig) -> tuple[float, float]:
+    """``(st, log pt)`` rounded to the compute dtype, as the JAX package
+    passes them (``BlockDetector._scalars``)."""
+    if cfg.precision == "float64":
+        return float(cfg.st), math.log(cfg.pt)
+    return float(np.float32(cfg.st)), float(np.float32(math.log(cfg.pt)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,34 +394,90 @@ class BlockDetector:
     spec: LadderSpec
     n: int
     K: int
-    taps: torch.Tensor       # [S, 2R+1] f32 ladder taps on the device
+    route: str               # "kernel" or "ladder" (resolve_route)
+    taps: torch.Tensor       # [S, 2R+1] ladder taps, in the compute dtype
     radii: torch.Tensor      # [S] int32 radius of each sigma, same device
     out_spec: dict           # _out_spec layout for unpack_block
+
+    def route_state(self, cs: torch.Tensor, nz: torch.Tensor,
+                    slices: torch.Tensor, valid_h, *,
+                    scrub_nan: bool = False):
+        """The detection state of a batch of sentinel-filled blocks ``cs``
+        ``[B, n, n]`` (dense support ``nz``, band slices ``slices``) by
+        the detector's route: on the kernel route the kernel's band state
+        ``(band_v, band_sig, locs, sums)``, on the ladder route ``(best_v,
+        best_logp, best_sigidx)``, each batched; :meth:`block_best` reads
+        one block's best state from either. A slot with ``valid_h[b] ==
+        0`` is a pad: neither route computes it, and its state is
+        empty."""
+        spec, n = self.spec, self.n
+        d_px = self.cfg.distance_px
+        geom = _BandGeom(n, d_px, cs.device)
+        if self.route == "kernel":
+            valid = torch.as_tensor(valid_h, dtype=torch.int32,
+                                    device=cs.device)
+            return fused_ladder.fused_ladder_nms_batched(
+                cs, nz.to(torch.float32), self.taps, R=spec.radius,
+                n_octaves=len(spec.octave_values),
+                planes_per_octave=spec.planes_per_octave, DB=geom.Dl,
+                valid=valid, radii=self.radii)
+        real = [b for b, ok in enumerate(valid_h) if ok]
+        if len(real) == len(valid_h):
+            nzb, counts, _ = _slice_support(geom, slices, d_px)
+            return ladder_best(cs, nzb, counts, self.taps, spec, geom,
+                               scrub_nan=scrub_nan)
+        B, dev = len(valid_h), cs.device
+        best = (torch.zeros((B, n, geom.Dl), dtype=cs.dtype, device=dev),
+                torch.full((B, n, geom.Dl), _INF, dtype=cs.dtype, device=dev),
+                torch.full((B, n, geom.Dl), -1, dtype=torch.int32,
+                           device=dev))
+        if real:
+            idx = torch.as_tensor(real, device=dev)
+            nzb, counts, _ = _slice_support(geom, slices[idx], d_px)
+            got = ladder_best(cs[idx], nzb, counts, self.taps, spec, geom,
+                              scrub_nan=scrub_nan)
+            for full, part in zip(best, got):
+                full[idx] = part
+        return best
+
+    def block_best(self, state, b: int, support, *,
+                   scrub_nan: bool = False):
+        """Block ``b``'s ``(best_v, best_logp, best_sigidx)`` from
+        :meth:`route_state`'s ``state`` and the block's band ``support``
+        ``(nzb, nz_count, band_c)``."""
+        if self.route == "kernel":
+            return _kernel_best(tuple(a[b] for a in state), support[0],
+                                support[1], scrub_nan=scrub_nan)
+        return tuple(a[b] for a in state)
 
     def fn_band(self, band: torch.Tensor, starts) -> dict:
         """Batch detection from the normalized chromosome band
         (band[i, d] = map[i, i+d], rows >= max(starts)+n): each start is
         sliced and densified on the device. A start of -1 is a pad slot:
-        the kernel skips it and its outputs are empty."""
+        neither route computes it and its outputs are empty. Each stage
+        is a named profiler range (``detect.*``)."""
         cfg, spec, n = self.cfg, self.spec, self.n
         d_px = cfg.distance_px
-        slices = torch.stack([band[max(s, 0): max(s, 0) + n] for s in starts])
-        valid = torch.as_tensor([int(s >= 0) for s in starts],
-                                dtype=torch.int32, device=band.device)
-        cs, nz = _preamble(dense_from_band(slices), d_px)
-        state = fused_ladder.fused_ladder_nms_batched(
-            cs, nz.to(torch.float32), self.taps, R=spec.radius,
-            n_octaves=len(spec.octave_values),
-            planes_per_octave=spec.planes_per_octave,
-            DB=band_width(n, d_px), valid=valid, radii=self.radii)
+        rf = torch.profiler.record_function
+        with rf("detect.preamble"):
+            slices = torch.stack([band[max(s, 0): max(s, 0) + n]
+                                  for s in starts])
+            cs, nz = _preamble(dense_from_band(slices), d_px)
+        with rf("detect." + self.route):
+            state = self.route_state(cs, nz, slices,
+                                     [int(s >= 0) for s in starts])
         del cs, nz
-        st = float(np.float32(cfg.st))
-        log_pt = float(np.float32(math.log(cfg.pt)))
-        outs = [_detect_one(tuple(a[b] for a in state), slices[b],
-                            det_ceil=spec.det_ceil, d_px=d_px, K=self.K,
-                            st=st, log_pt=log_pt)
-                for b in range(len(starts))]
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        geom = _BandGeom(n, d_px, band.device)
+        st, log_pt = thresholds(cfg)
+        outs = []
+        with rf("detect.epilogue"):
+            for b in range(len(starts)):
+                support = _slice_support(geom, slices[b], d_px)
+                _, best_logp, best_sig = self.block_best(state, b, support)
+                outs.append(_epilogue(
+                    geom, best_logp, best_sig, *support,
+                    det_ceil=spec.det_ceil, K=self.K, st=st, log_pt=log_pt))
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def fn_band_packed(self, band: torch.Tensor, starts) -> torch.Tensor:
         """``fn_band`` packed into one [B, F + I] buffer (one D2H); the
@@ -398,17 +487,18 @@ class BlockDetector:
 
 def build_detector(cfg: DetectionConfig, n: int, *, device,
                    max_candidates: int | None = None) -> BlockDetector:
-    """Detector for [n, n] blocks on ``device`` (a torch.device). Raises
-    for configurations the port cannot run (see :func:`kernel_gate`)."""
-    kernel_gate(cfg, device)
+    """Detector for [n, n] blocks on ``device`` (a torch.device), on the
+    route :func:`resolve_route` picks."""
+    route = resolve_route(cfg)
     spec = build_ladder(cfg.octave_values)
     # a block holds n * Dl band cells: the candidate table cannot be longer
     K = min(max_candidates or cfg.max_candidates,
             n * band_width(n, cfg.distance_px))
-    return BlockDetector(cfg=cfg, spec=spec, n=n, K=K,
-                         taps=ladder_tensor(spec.kernels, device),
+    dtype = np.float64 if cfg.precision == "float64" else np.float32
+    return BlockDetector(cfg=cfg, spec=spec, n=n, K=K, route=route,
+                         taps=ladder_tensor(spec.kernels, device, dtype),
                          radii=radii_tensor(spec.blur_sigmas, device),
-                         out_spec=_out_spec(out_shapes(K)))
+                         out_spec=_out_spec(out_shapes(K, dtype)))
 
 
 # ---------------------------------------------------------------------------

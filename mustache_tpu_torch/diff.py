@@ -1,58 +1,61 @@
 """Differential loop detection (two conditions) on the card.
 
-Torch port of the fused-kernel, device-normalize path of
-``mustache_tpu/diff.py`` (``diff_mustache`` semantics, diff_mustache.py:
-260-569). Both conditions' normalized bands live on the device; each batch
-of blocks is sliced and densified from both, and the two conditions' blocks
-go through ONE launch of the fused ladder/DoG/NMS kernel as a stacked
-``[2B]`` batch: condition 1's blocks in slots ``0..B-1``, condition 2's in
-``B..2B-1`` (``mustache_tpu/diff.py:337-357``). A pad slot (start -1) is
-skipped by the kernel in both halves, so pad slots may sit mid-batch; the
+Torch port of ``mustache_tpu/diff.py`` without its sharded runners
+(``diff_mustache`` semantics, diff_mustache.py:260-569). Both conditions'
+normalized bands live on the device; each batch of blocks is sliced and
+densified from both, and the two conditions' blocks go through the
+single-map detector's route (``detect.resolve_route``) as ONE stacked
+``[2B]`` batch: condition 1's blocks in slots ``0..B-1``, condition 2's
+in ``B..2B-1`` (``mustache_tpu/diff.py:337-357``). On the kernel route
+that is one launch of the fused ladder/DoG/NMS kernel; on the ladder
+route (float64, ``use_pallas="off"``, oversized ladders) the JAX XLA
+path's per-map ladders in torch ops, in the block's dtype. A pad slot
+(start -1) is skipped in both halves, so pad slots may sit mid-batch; the
 state is split by slot, never by validity.
 
 The difference map ``cs1 - cs2`` on the joint support needs only blur
 planes 1 and 2 of each octave: the reference fits its folded-normal
 differential p ONCE per octave and never rolls that plane
-(diff_mustache.py:337). Those 4 blurs per block run as the plain version's
-two f32 ``conv2d`` passes (``kernels/fused_ladder.py::_blur_octave``), then
-the per-octave two-sided p is taken over the joint support
-(``mustache_tpu/diff.py:384-412``). Per map, log p is recovered from the
-kernel's per-plane partials with NaN scrubbed to p = 1, each detection is
-paired with the differential p of its octave, and the candidate tables
-export ``pair``, ``v1`` and ``v2`` over every 3x3 neighbourhood
-(``mustache_tpu/diff.py:173-263``). The host finish, the regrow and the
-block loop are copies of ``mustache_tpu/diff.py:485-566, 607-624,
-653-855`` (device-normalize branch).
+(diff_mustache.py:337). Those 4 blurs per block run on the band only, as
+banded matmuls in the block's dtype (``ladder.band_blur``), then the
+per-octave two-sided p is taken over the joint support
+(``mustache_tpu/diff.py:384-412``). Per map, log p comes from the route's
+state with NaN scrubbed to p = 1, each detection is paired with the
+differential p of its octave, and the candidate tables export ``pair``,
+``v1`` and ``v2`` over every 3x3 neighbourhood
+(``mustache_tpu/diff.py:173-263``). Normalize follows the single-map rule
+(``pipeline.py``): on the device for the float32 default, on the host for
+float64 and ``exact_normalize``, skipped for ``normalize=False``. The
+host finish, the regrow and the block loop are copies of
+``mustache_tpu/diff.py:485-566, 607-624, 653-855``.
 
 Not ported yet, and raising ``NotImplementedError`` before the device is
-resolved (ROADMAP Queue 1): ``precision="float64"``, ``exact_normalize``
-(host normalize) and ``runner`` (sharding). Like the port's single-map
-path, the last batch of a chromosome is not padded to the batch size.
+resolved (ROADMAP Queue 1): ``runner`` (sharding). Like the port's
+single-map path, the last batch of a chromosome is not padded to the
+batch size.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
-from mustache_tpu_torch.bandnorm import (
-    bucket_rows, normalize_band_device, pad_exceptions,
-)
+from mustache_tpu_torch.bandnorm import bucket_rows
 from mustache_tpu_torch.config import (
     DetectionConfig, block_mask_sizes, chunk_grid, clamp_distance_filter,
 )
 from mustache_tpu_torch.detect import (
-    SENTINEL, _BandGeom, _band_candidates, _cluster_components, _out_spec,
-    _pack_batched, _preamble, _slice_support, band_width, build_detector,
-    check_precision, dense_from_band, out_shapes as single_out_shapes,
-    unpack_block,
+    SENTINEL, BlockDetector, _BandGeom, _band_candidates, _cluster_components,
+    _out_spec, _pack_batched, _preamble, _slice_support, band_width,
+    build_detector, dense_from_band, out_shapes as single_out_shapes,
+    resolve_route, thresholds, unpack_block,
 )
 from mustache_tpu_torch.device import resolve_device
-from mustache_tpu_torch.kernels import fused_ladder
-from mustache_tpu_torch.pipeline import _batch_size, stream_band_to_device
+from mustache_tpu_torch.kernels.fused_ladder import _symmetric_pad
+from mustache_tpu_torch.ladder import band_blur
+from mustache_tpu_torch.pipeline import _batch_size, normalized_band
 from mustache_tpu_torch.scalespace import LadderSpec
 
 _INF = float("inf")
@@ -84,81 +87,69 @@ def diff_p_band(cs1, cs2, nz1, nz2, taps_sel, *, R: int, Dl: int, valid):
     """Frozen per-octave differential p of each block, ``[B, n_oct, N,
     Dl]`` in band layout (``mustache_tpu/diff.py:384-412``).
 
-    ``cs1``/``cs2``: sentinel-filled blocks ``[B, N, N]`` f32; ``nz1``/
-    ``nz2``: their supports (taken before the sentinel fill);
-    ``taps_sel``: the difference map's taps ``[2 n_oct, 2R+1]``
-    (:func:`diff_planes`); ``valid``: per-slot flags, host ints. The
-    difference ``cs1 - cs2`` on the joint support is blurred by the two
-    f32 conv passes of the plain version, planes ``2o`` and ``2o+1`` give
-    octave o's DoG plane, and its two-sided normal tail is taken with the
-    mean and variance on the joint support; a NaN p (zero variance) is 1.
-    Pad slots are left at 0 (their outputs are never read)."""
+    ``cs1``/``cs2``: sentinel-filled blocks ``[B, N, N]`` (f32, or f64
+    on the float64 route); ``nz1``/``nz2``: their supports (taken before
+    the sentinel fill); ``taps_sel``: the difference map's taps ``[2
+    n_oct, 2R+1]`` in the blocks' dtype (:func:`diff_planes`); ``valid``:
+    per-slot flags, host ints. The difference ``cs1 - cs2`` on the joint
+    support is blurred on the band (``ladder.band_blur``), planes ``2o``
+    and ``2o+1`` give octave o's DoG plane, and its
+    two-sided normal tail is taken with the mean and variance on the
+    joint support; a NaN p (zero variance) is 1. Pad slots are left at 0
+    (their outputs are never read)."""
     B, N, _ = cs1.shape
     n_oct = taps_sel.shape[0] // 2
-    out = torch.zeros((B, n_oct, N, Dl), dtype=torch.float32,
-                      device=cs1.device)
-    for b in range(B):
-        if not valid[b]:
-            continue
-        nzd = nz1[b] & nz2[b]
-        cds = torch.where(nzd, cs1[b] - cs2[b], 0.0)
-        g = fused_ladder._blur_octave(fused_ladder._symmetric_pad(cds, R),
-                                      taps_sel, N)            # [2 n_oct, N, N]
-        gb = band_of(g, Dl, 0.0)
-        nzdb = band_of(nzd, Dl, False)
-        nzdbf = nzdb.to(torch.float32)
-        inv = 1.0 / nzd.sum(dtype=torch.int32).clamp(min=1).to(torch.float32)
-        for o in range(n_oct):
-            L = gb[2 * o] - gb[2 * o + 1]
-            mu = (L * nzdbf).sum() * inv
-            var = torch.where(nzdb, (L - mu) ** 2, 0.0).sum() * inv
-            phi = torch.special.ndtr((L - mu) / torch.sqrt(var))
-            phi = torch.where(torch.isnan(phi), 1.0, phi)
-            out[b, o] = torch.where(phi > 0.5, 1.0 - phi, phi) * 2.0
+    out = torch.zeros((B, n_oct, N, Dl), dtype=cs1.dtype, device=cs1.device)
+    real = [b for b in range(B) if valid[b]]
+    if not real:
+        return out
+    idx = torch.as_tensor(real, device=cs1.device)
+    nzd = nz1[idx] & nz2[idx]
+    cds = torch.where(nzd, cs1[idx] - cs2[idx], 0.0)
+    gb = band_blur(_symmetric_pad(cds, R), taps_sel, N, Dl)
+    nzdb = band_of(nzd, Dl, False)
+    nzdbf = nzdb.to(cs1.dtype)
+    inv = 1.0 / nzd.sum(dim=(1, 2), dtype=torch.int32).clamp(min=1).to(
+        cs1.dtype)
+    for o in range(n_oct):
+        L = gb[:, 2 * o] - gb[:, 2 * o + 1]              # [b, N, Dl]
+        mu = (L * nzdbf).sum(dim=(1, 2)) * inv
+        var = torch.where(nzdb, (L - mu[:, None, None]) ** 2,
+                          0.0).sum(dim=(1, 2)) * inv
+        phi = torch.special.ndtr((L - mu[:, None, None])
+                                 / torch.sqrt(var)[:, None, None])
+        phi = torch.where(torch.isnan(phi), 1.0, phi)
+        out[idx, o] = torch.where(phi > 0.5, 1.0 - phi, phi) * 2.0
     return out
 
 
-def _diff_detect_one(band_states, band_slices, diff_p, *, det_ceil,
+def _diff_detect_one(bests, supports, diff_p, *, det_ceil,
                      planes_per_octave: int, d_px: int, K: int, st: float,
                      log_pt: float):
-    """One block's two candidate tables from the kernel's band state of
-    each condition ``(band_v, band_sig, locs, sums)``, the two normalized
-    band slices ``[N, >= Dl]`` and the block's differential p ``[n_oct, N,
-    Dl]`` (the band-state + band-slice branch of the JAX
-    ``_diff_detect_one``). Keys carry a ``1``/``2`` suffix, plus
-    ``nz1_count`` and ``nz2_count``."""
-    dev = band_slices[0].device
-    geom = _BandGeom(band_slices[0].shape[0], d_px, dev)
-    nzb, counts, band_c = {}, {}, {}
-    for m, sl in ((1, band_slices[0]), (2, band_slices[1])):
-        nzb[m], counts[m], band_c[m] = _slice_support(geom, sl, d_px)
-
-    states = {}
-    for m in (1, 2):
-        bv, bsig, locs, sums = band_states[m - 1]
-        inv_count = 1.0 / counts[m].clamp(min=1).to(torch.float32)
-        scales = sums * inv_count - locs
-        sig_c = bsig.clamp(min=0).long()
-        logp = -(bv - locs[sig_c]) / scales[sig_c]
-        # reference scrubs NaN p to 1 (diff_mustache.py:386-387)
-        logp = torch.where(torch.isnan(logp), 0.0, logp)
-        best_logp = torch.where(nzb[m] & (bsig >= 0), logp, _INF)
-        best_sig = torch.where(nzb[m], bsig, -1)
-        # differential p of the detection's octave, 2 where undetected
-        pair = torch.gather(diff_p, 0, (sig_c // planes_per_octave)[None])[0]
-        best_pair = torch.where(best_sig >= 0, pair, SENTINEL)
-        states[m] = (bv, best_logp, best_pair, best_sig)
-
-    out = {"nz1_count": counts[1], "nz2_count": counts[2]}
-    ceil_table = torch.as_tensor(det_ceil, dtype=torch.int64, device=dev)
+    """One block's two candidate tables from each condition's detection
+    state ``(best_v, best_logp, best_sigidx)`` (either route, NaN log p
+    already scrubbed to 0), each condition's band support ``(nzb,
+    nz_count, band_c)`` and the block's differential p ``[n_oct, N, Dl]``
+    (the JAX ``_diff_detect_one`` from its states on). Keys carry a
+    ``1``/``2`` suffix, plus ``nz1_count`` and ``nz2_count``."""
+    N = diff_p.shape[-2]
+    geom = _BandGeom(N, d_px, diff_p.device)
+    nzb = {m: supports[m - 1][0] for m in (1, 2)}
+    out = {"nz1_count": supports[0][1], "nz2_count": supports[1][1]}
+    ceil_table = torch.as_tensor(det_ceil, dtype=torch.int64,
+                                 device=diff_p.device)
     # best DoG responses on each map's own support, 1 elsewhere
     # (diff_mustache.py:446-449), exported on both maps' neighbourhoods
-    band_v = {m: torch.where(nzb[m], states[m][0], 1.0) for m in (1, 2)}
+    band_v = {m: torch.where(nzb[m], bests[m - 1][0], 1.0) for m in (1, 2)}
     for m in (1, 2):
-        _, best_logp, best_pair, best_sig = states[m]
+        _, best_logp, best_sig = bests[m - 1]
+        # differential p of the detection's octave, 2 where undetected
+        octv = (best_sig.clamp(min=0) // planes_per_octave).long()
+        pair = torch.gather(diff_p, 0, octv[None])[0]
+        best_pair = torch.where(best_sig >= 0, pair, SENTINEL)
         table = _band_candidates(
             geom, band_logp=best_logp, band_sigidx=best_sig, band_nz=nzb[m],
-            band_c=band_c[m], ceil_table=ceil_table,
+            band_c=supports[m - 1][2], ceil_table=ceil_table,
             ceil_max=int(max(det_ceil)), st=st, log_pt=log_pt, K=K,
             extras=(("pair", torch.where(nzb[m], best_pair, 1.0), 1.0, _INF),
                     ("v1", band_v[1], 1.0, 1.0),
@@ -167,12 +158,12 @@ def _diff_detect_one(band_states, band_slices, diff_p, *, det_ceil,
     return out
 
 
-def out_shapes(K: int) -> dict:
+def out_shapes(K: int, dtype=np.float32) -> dict:
     """Per-block output layout of :func:`_diff_detect_one`: name ->
-    (shape, numpy dtype)."""
-    per_map = {k: v for k, v in single_out_shapes(K).items()
+    (shape, numpy dtype); the float leaves carry the run's dtype."""
+    per_map = {k: v for k, v in single_out_shapes(K, dtype).items()
                if k != "nz_count"}
-    per_map.update({f"neigh_{e}": ((K, 3, 3), np.float32)
+    per_map.update({f"neigh_{e}": ((K, 3, 3), dtype)
                     for e in ("pair", "v1", "v2")})
     shapes = {"nz1_count": ((), np.int32), "nz2_count": ((), np.int32)}
     for m in "12":
@@ -183,61 +174,60 @@ def out_shapes(K: int) -> dict:
 @dataclasses.dataclass(frozen=True)
 class DiffBlockDetector:
     """Differential detector for [n, n] blocks sliced from two
-    device-resident bands."""
+    device-resident bands, on the route of its single-map detector
+    ``base``."""
 
-    cfg: DetectionConfig
-    spec: LadderSpec
-    n: int
-    K: int
-    taps: torch.Tensor       # [S, 2R+1] f32 ladder taps on the device
-    radii: torch.Tensor      # [S] int32 radius of each sigma, same device
+    base: BlockDetector
     out_spec: dict           # _out_spec layout for unpack_block
+
+    cfg = property(lambda self: self.base.cfg)
+    spec = property(lambda self: self.base.spec)
+    n = property(lambda self: self.base.n)
+    K = property(lambda self: self.base.K)
+    route = property(lambda self: self.base.route)
+    taps = property(lambda self: self.base.taps)
+    radii = property(lambda self: self.base.radii)
 
     def fn_band(self, band1: torch.Tensor, band2: torch.Tensor,
                 starts) -> dict:
         """Batch detection from both conditions' normalized bands (same
         shape; rows >= max(starts)+n). A start of -1 is a pad slot: the
-        kernel skips it in both halves and its outputs are empty."""
+        route skips it in both halves and its outputs are empty."""
         cfg, spec, n = self.cfg, self.spec, self.n
         d_px = cfg.distance_px
         B = len(starts)
-        slices = torch.stack([band[max(s, 0): max(s, 0) + n]
-                              for band in (band1, band2) for s in starts])
         valid_h = [int(s >= 0) for s in starts]
-        valid = torch.as_tensor(valid_h * 2, dtype=torch.int32,
-                                device=band1.device)
-        DB = band_width(n, d_px)
-        # each stage is a named profiler range: chip_smoke.py phase 7
-        # reads the device time under each from a trace
+        geom = _BandGeom(n, d_px, band1.device)
+        # each stage is a named profiler range: chip_smoke.py reads the
+        # device time under each from a trace
         rf = torch.profiler.record_function
         with rf("diff.preamble"):
+            slices = torch.stack([band[max(s, 0): max(s, 0) + n]
+                                  for band in (band1, band2) for s in starts])
             cs, nz = _preamble(dense_from_band(slices), d_px)
-            nzf = nz.to(torch.float32)
-        # both conditions' blocks through ONE launch: slots [0, B) are
-        # condition 1, [B, 2B) condition 2
-        with rf("diff.fused_ladder"):
-            state = fused_ladder.fused_ladder_nms_batched(
-                cs, nzf, self.taps, R=spec.radius,
-                n_octaves=len(spec.octave_values),
-                planes_per_octave=spec.planes_per_octave, DB=DB,
-                valid=valid, radii=self.radii)
-        del nzf
+        # both conditions' blocks as one batch: slots [0, B) are condition
+        # 1, [B, 2B) condition 2 (one kernel launch on the kernel route)
+        with rf("diff.fused_ladder" if self.route == "kernel"
+                else "diff.ladder"):
+            state = self.base.route_state(cs, nz, slices, valid_h * 2,
+                                          scrub_nan=True)
         with rf("diff.planes"):
             dp = diff_p_band(cs[:B], cs[B:], nz[:B], nz[B:],
                              self.taps[diff_planes(spec)], R=spec.radius,
-                             Dl=DB, valid=valid_h)
+                             Dl=geom.Dl, valid=valid_h)
         del cs, nz
-        st = float(np.float32(cfg.st))
-        log_pt = float(np.float32(math.log(cfg.pt)))
+        st, log_pt = thresholds(cfg)
+        outs = []
         with rf("diff.epilogue"):
-            outs = [_diff_detect_one(
-                        (tuple(a[b] for a in state),
-                         tuple(a[B + b] for a in state)),
-                        (slices[b], slices[B + b]), dp[b],
-                        det_ceil=spec.det_ceil,
-                        planes_per_octave=spec.planes_per_octave, d_px=d_px,
-                        K=self.K, st=st, log_pt=log_pt)
-                    for b in range(B)]
+            for b in range(B):
+                supports = [_slice_support(geom, slices[k], d_px)
+                            for k in (b, B + b)]
+                bests = [self.base.block_best(state, k, sup, scrub_nan=True)
+                         for k, sup in zip((b, B + b), supports)]
+                outs.append(_diff_detect_one(
+                    bests, supports, dp[b], det_ceil=spec.det_ceil,
+                    planes_per_octave=spec.planes_per_octave, d_px=d_px,
+                    K=self.K, st=st, log_pt=log_pt))
             return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def fn_band_packed(self, band1: torch.Tensor, band2: torch.Tensor,
@@ -250,12 +240,12 @@ class DiffBlockDetector:
 def build_diff_detector(cfg: DetectionConfig, n: int, *, device,
                         max_candidates: int | None = None) -> DiffBlockDetector:
     """Differential detector for [n, n] blocks on ``device``: the
-    single-map detector's gate, ladder and capacity with the diff
-    layout. Raises for configurations the port cannot run (see
-    ``detect.kernel_gate``)."""
+    single-map detector's route, ladder and capacity with the diff
+    layout."""
     d = build_detector(cfg, n, device=device, max_candidates=max_candidates)
-    return DiffBlockDetector(cfg=cfg, spec=d.spec, n=n, K=d.K, taps=d.taps,
-                             radii=d.radii, out_spec=_out_spec(out_shapes(d.K)))
+    dtype = np.float64 if cfg.precision == "float64" else np.float32
+    return DiffBlockDetector(base=d,
+                             out_spec=_out_spec(out_shapes(d.K, dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -363,29 +353,25 @@ def _maybe_regrow_diff(block_out: dict, cfg: DetectionConfig,
 # ---------------------------------------------------------------------------
 
 def _diff_bands(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig,
-                dev: torch.device):
-    """Both conditions' normalized bands on ``dev`` and what went up: one
-    compact upload per condition on a shared band shape, each normalized
-    with its OWN bin count (the window clipping at the diagonal tails
-    depends on it, ``mustache_tpu/diff.py:754-761``). Returns ``(bands,
-    uploads, n)`` with ``n`` the larger bin count."""
+                dev: torch.device, *, normalize: bool = True,
+                exact: bool = False):
+    """Both conditions' bands on ``dev`` and what went up, on a shared
+    band shape, each normalized with its OWN bin count (the window
+    clipping at the diagonal tails depends on it,
+    ``mustache_tpu/diff.py:754-761``) by the single-map rule
+    (``pipeline.normalized_band``). Returns ``(bands, descriptions, n)``
+    with ``n`` the larger bin count."""
     d_px = cfg.distance_px
     n1 = int(max(x1.max(), y1.max())) + 1
     n2 = int(max(x2.max(), y2.max())) + 1
     n = max(n1, n2)
     width = cfg.chunk_size
     shape = (bucket_rows(max(n, width)), band_width(width, d_px))
-    bands, uploads = [], []
-    for x, y, v, n_own in ((x1, y1, v1, n1), (x2, y2, v2, n2)):
-        up = stream_band_to_device(x, y, v, shape, dev)
-        exc = (None if up.exceptions is None
-               else pad_exceptions(up.exceptions, shape[0]))
-        band, _ = normalize_band_device(up.band, n_own, cfg.resolution,
-                                        d_px, exceptions=exc,
-                                        packed4=up.packed4)
-        bands.append(band)
-        uploads.append(up)
-    return bands, uploads, n
+    bands, sent = zip(*(
+        normalized_band(x, y, v, cfg, shape, n_own, dev,
+                        normalize=normalize, exact=exact)
+        for x, y, v, n_own in ((x1, y1, v1, n1), (x2, y2, v2, n2))))
+    return bands, sent, n
 
 
 def _as_coo(x, y, v):
@@ -395,26 +381,24 @@ def _as_coo(x, y, v):
 
 
 def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
+                          normalize: bool = True,
                           exact_normalize: bool = False, runner=None,
                           device=None, log=None):
     """Differential loop calls for one chromosome, both conditions, on
-    ``device``: the card by default ("cuda[:i]" runs the fused kernel);
-    ``device="cpu"`` runs its plain PyTorch version. Unported modes raise
+    ``device``: the card by default; ``device="cpu"`` runs the kernel
+    route's plain PyTorch version. ``normalize`` and ``exact_normalize``
+    as in ``pipeline.detect_loops_coo``. Sharded runs raise
     ``NotImplementedError`` before the device is resolved. The inputs are
     not modified. ``log``: optional callable taking one message string.
 
     Returns a list of ``(bin1, bin2, q, scale, tag)`` in block order with
     tag 1=loop1, 2=diffloop1, 3=loop2, 4=diffloop2
     (diff_mustache.py:704-715)."""
-    if exact_normalize:
-        raise NotImplementedError(
-            "exact_normalize: host normalize not ported yet (ROADMAP Queue "
-            "1, normalize.py + f64/exact modes)")
     if runner is not None:
         raise NotImplementedError(
             "runner: sharded runs not ported yet (ROADMAP Queue 1, "
             "sharding.py)")
-    check_precision(cfg)
+    route = resolve_route(cfg)
     dev = resolve_device(device)
     if len(v1) == 0 or len(v2) == 0:
         return []
@@ -424,27 +408,37 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
     d_px = cfg.distance_px
     # always chunk x chunk, zero-padded (diff_mustache.py:671)
     width = cfg.chunk_size
-    det = build_diff_detector(cfg, width, device=dev)   # raises if unsupported
-    (band1, band2), uploads, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg, dev)
+    det = build_diff_detector(cfg, width, device=dev)
+    (band1, band2), sent, n = _diff_bands(
+        x1, y1, v1, x2, y2, v2, cfg, dev, normalize=normalize,
+        exact=exact_normalize)
 
     start, end = chunk_grid(n, width, d_px)
     masks = block_mask_sizes(start, end, d_px)
     nblocks = len(start)
-    # a block of the batch holds about 28 * n^2 bytes at its peak, in
-    # the stacked preamble: both conditions' widened slices, sentinel
-    # copies and temporaries, f32 and bool supports (0.74 GiB peak for
-    # the chr21 diff workload, B=6 at n=2000, bands included, on an
-    # NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.py phase 7). The
-    # difference planes and the epilogue run one block at a time: about
-    # 48 * n^2 bytes of conv scratch and 128 * n * Dl bytes of two
-    # tables' state once per batch.
-    B = _batch_size(cfg, nblocks, dev, per_block=28 * width * width,
-                    reserve=48 * width * width + 128 * width * band1.shape[1])
+    if route == "kernel":
+        # a block of the batch holds about 28 * n^2 bytes at its peak, in
+        # the stacked preamble: both conditions' widened slices, sentinel
+        # copies and temporaries, f32 and bool supports (0.74 GiB peak
+        # for the chr21 diff workload, B=6 at n=2000, bands included, on
+        # an NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.py phase 7). The
+        # difference planes and the epilogue run one block at a time:
+        # about 48 * n^2 bytes of conv scratch and 128 * n * Dl bytes of
+        # two tables' state once per batch.
+        B = _batch_size(cfg, nblocks, dev, per_block=28 * width * width,
+                        reserve=48 * width * width
+                        + 128 * width * band1.shape[1])
+    else:
+        # the JAX package's XLA cap for the triple ladder: ~135 n^2 live
+        # elements of the compute dtype per block (mustache_tpu/diff.py:
+        # 594-597)
+        B = _batch_size(cfg, nblocks, dev,
+                        per_block=135 * width * width * band1.element_size())
     if log is not None:
         log(f"n={n} blocks={nblocks} of {width}^2 batch={B} (stacked "
-            f"{2 * B} kernel slots) device={dev} "
-            + " ".join(f"cond{m} {up.describe()}"
-                       for m, up in ((1, uploads[0]), (2, uploads[1]))))
+            f"{2 * B} slots) device={dev} route={route} "
+            f"precision={cfg.precision} "
+            + " ".join(f"cond{m} {d}" for m, d in zip((1, 2), sent)))
 
     def run(d, idxs) -> np.ndarray:
         # one packed D2H per batch
@@ -479,7 +473,7 @@ def find_diff_loops(x1, y1, v1, x2, y2, v2, *, resolution: int = 5000,
                     distance_bp: int = 2_000_000, pt: float = 0.2,
                     pt2: float = 0.1, st: float = 0.88, sigma0: float = 1.6,
                     octaves: int = 2, precision: str = "float32",
-                    device=None):
+                    normalize: bool = True, device=None):
     """One-call differential API (twin of :func:`find_loops`): two COO
     contact maps in, ``(bin1, bin2, q, scale, tag)`` rows out, on
     ``device`` (the card unless ``device="cpu"``). The caller's arrays are
@@ -492,4 +486,5 @@ def find_diff_loops(x1, y1, v1, x2, y2, v2, *, resolution: int = 5000,
         precision=precision,
     )
     return detect_diff_loops_coo(
-        *(np.array(a) for a in (x1, y1, v1, x2, y2, v2)), cfg, device=device)
+        *(np.array(a) for a in (x1, y1, v1, x2, y2, v2)), cfg,
+        normalize=normalize, device=device)

@@ -11,10 +11,11 @@ done only when all four parts exist); ingest retries and the one-deep
 prefetch are the single-map CLI's. The run goes on the card unless
 ``--engine-platform cpu`` asks for the CPU; without CUDA it raises.
 
-Not ported yet, and raising ``NotImplementedError`` before any work
-(ROADMAP Queue 1): ``--engine-precision float64``, ``--engine-mesh
-block|rowshard``, ``--engine-nprocs > 1``, ``--engine-coordinator`` and a
-``-ch2`` that differs from ``-ch``.
+``--engine-precision float64`` runs the float64 route (host normalize,
+the ladder in float64), as in the single-map CLI. Not ported yet, and
+raising ``NotImplementedError`` before any work (ROADMAP Queue 1):
+``--engine-mesh block|rowshard``, ``--engine-nprocs > 1``,
+``--engine-coordinator`` and a ``-ch2`` that differs from ``-ch``.
 """
 
 from __future__ import annotations

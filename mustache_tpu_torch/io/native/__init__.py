@@ -1,17 +1,20 @@
-"""ctypes bindings for the native host band fill, and its numpy twins.
+"""ctypes bindings for the native host band fill and host normalize, and
+the band fill's numpy twins.
 
-Torch port of the band half of ``mustache_tpu/io/native/__init__.py``
-(bindings at :250-424). ``band_fill.cpp`` (a copy of the JAX package's
-band functions) is compiled with g++ at first use into the port's build
-cache (``kernels/build.py``, keyed by a hash of the source); a failed
-build raises, and nothing here falls back to numpy. Argument dtypes and
+Torch port of the band and normalize halves of
+``mustache_tpu/io/native/__init__.py`` (bindings at :65-70, :221-247 and
+:250-424). ``band_fill.cpp`` and ``normalize.cpp`` (copies of the JAX
+package's functions) are compiled with g++ at first use into the port's
+build cache (``kernels/build.py``, keyed by a hash of the source); a
+failed build raises, and nothing here falls back to numpy. Argument dtypes and
 contiguity are checked in Python before any pointer is passed; a wrong
 one raises ``TypeError``.
 
 The ``*_plain`` functions are the numpy twins the JAX package keeps
 beside its native calls (``mustache_tpu/pipeline.py:67-76,109-112,
 136-147,159-165``). The tests hold the native functions to them; the
-pipeline does not call them.
+pipeline calls only :func:`fill_band_plain`, for the float64 band the
+native fill (float32 only) does not write.
 
 ``FILLS`` counts the native fill calls (plain integer), so a run can show
 that its band went up through the native fill.
@@ -25,6 +28,7 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "band_fill.cpp"
+NORM_SRC = Path(__file__).resolve().parent / "normalize.cpp"
 N_THREADS = 8
 FILLS = 0
 
@@ -66,6 +70,47 @@ def library():
     from mustache_tpu_torch.kernels import build
 
     return build.load("band_fill", bind, src=SRC)
+
+
+def bind_normalize(lib) -> None:
+    """ctypes signature of ``mtpu_normalize_coo`` (as the JAX binding)."""
+    lib.mtpu_normalize_coo.restype = ctypes.c_int
+    lib.mtpu_normalize_coo.argtypes = [
+        _I64, _I64, _F64, _i64, _i64, _i32, _i32, _F64, _P, _i64,
+        ctypes.POINTER(ctypes.c_int64), _i32]
+
+
+def normalize_library():
+    """The host normalize library, built at first use (raises on
+    failure)."""
+    from mustache_tpu_torch.kernels import build
+
+    return build.load("normalize", bind_normalize, src=NORM_SRC)
+
+
+def normalize_coo(x, y, v, n_bins, Dv, F, band_out=None,
+                  n_threads=N_THREADS):
+    """One-call local-regime normalize (``normalize.normalize_sparse``'s
+    fast path): mutates ``v`` (float64, C-contiguous) in place, optionally
+    fills a zeroed f32 band ``band_out[x, y-x] = z``, and returns
+    ``(weights, n_skipped)``; ``n_skipped`` counts entries with ``y-x >=
+    Dv``, which are left untouched (and not written to the band)."""
+    if v.dtype != np.float64 or not v.flags.c_contiguous:
+        raise TypeError(f"v must be C-contiguous float64, got {v.dtype}")
+    weights = np.empty(int(Dv), np.float64)
+    if band_out is None:
+        bptr, ldb = None, 0
+    else:
+        _out(band_out, (np.float32,))
+        bptr, ldb = _ptr(band_out), band_out.shape[1]
+    skipped = ctypes.c_int64(0)
+    rc = normalize_library().mtpu_normalize_coo(
+        np.ascontiguousarray(x, np.int64), np.ascontiguousarray(y, np.int64),
+        v, len(v), int(n_bins), int(Dv), int(F), weights, bptr, ldb,
+        ctypes.byref(skipped), int(n_threads))
+    if rc != 0:
+        raise RuntimeError(f"native normalize_coo failed (rc={rc})")
+    return weights, skipped.value
 
 
 def _xy(x, y):

@@ -5,8 +5,8 @@
 // mtpu_fill_band_u16, mtpu_classify_values, mtpu_fill_band_compact,
 // mtpu_values_fit_u16, mtpu_classify_values4, mtpu_pack_band4,
 // mtpu_fill_band_compact_range), unchanged but for this header. The
-// host normalize of that file (mtpu_normalize_coo) belongs to the f64 /
-// exact modes and is not here.
+// host normalize of that file (mtpu_normalize_coo) is normalize.cpp
+// beside this one.
 //
 // Built at first use by mustache_tpu_torch/kernels/build.py with
 //   g++ -O3 -fPIC -shared -std=c++17 band_fill.cpp -lpthread

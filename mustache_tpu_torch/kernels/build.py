@@ -1,10 +1,11 @@
 """Build-at-first-use for the port's native code.
 
 Each CUDA source ``csrc/<name>.cu`` has a plain C interface and is
-compiled by ``nvcc`` into ``_build/lib<name>_<hash>.so``; a C++ host
-source (the band fill of ``io/native``) is compiled the same way by
-``g++``. The hash covers the source and the flags, so an edited source
-rebuilds and a stale library is never loaded; nothing depends on the
+compiled by ``nvcc`` into ``lib<name>_<hash>.so`` in the build cache
+(:func:`build_dir`); a C++ host source (the band fill and normalize of
+``io/native``) is compiled the same way by ``g++``. The hash covers the
+source and the flags, so an edited source rebuilds and a stale library
+is never loaded; nothing depends on the
 host it was built on (no ``-march=native``). Libraries are loaded with
 ``ctypes``. For CUDA, ptxas reports each kernel's registers, shared
 memory and spills (``-Xptxas -v``); the compiler's report is kept beside
@@ -24,7 +25,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+PACKAGE_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+BUILD_DIR_ENV = "MUSTACHE_TPU_TORCH_BUILD_DIR"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
@@ -55,6 +57,34 @@ def gxx() -> str:
     return found
 
 
+def _writable(path: Path) -> bool:
+    """``path`` exists as a writable directory, or can be made one."""
+    try:
+        path.mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return False
+    return os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir() -> Path:
+    """The build cache: ``$MUSTACHE_TPU_TORCH_BUILD_DIR`` when set (used as
+    given, made if missing); else the package's ``kernels/_build`` when it
+    can be written; else ``~/.cache/mustache_tpu_torch/build`` (a
+    read-only install, as the JAX package's compile cache falls back in
+    ``mustache_tpu/runtime.py``). Raises when no candidate can be
+    written."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    if env:
+        return Path(env).expanduser()
+    for cand in (PACKAGE_BUILD_DIR,
+                 Path.home() / ".cache" / "mustache_tpu_torch" / "build"):
+        if _writable(cand):
+            return cand
+    raise RuntimeError(
+        f"no writable build directory: set {BUILD_DIR_ENV} (tried "
+        f"{PACKAGE_BUILD_DIR} and ~/.cache/mustache_tpu_torch/build)")
+
+
 def _source(name: str, src: Path | None) -> Path:
     return src if src is not None else CSRC / f"{name}.cu"
 
@@ -73,7 +103,7 @@ def library_path(name: str, src: Path | None = None) -> Path:
     src = _source(name, src)
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(_flags(src)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    return build_dir() / f"lib{name}_{digest[:16]}.so"
 
 
 def build(name: str, src: Path | None = None) -> Path:
@@ -85,8 +115,8 @@ def build(name: str, src: Path | None = None) -> Path:
     out = library_path(name, src)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
         res = subprocess.run(_command(src, tmp), capture_output=True,

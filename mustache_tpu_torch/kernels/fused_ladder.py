@@ -72,8 +72,10 @@ def smem_bytes(R: int, n_octaves: int) -> int:
 
 
 def kernel_fits(R: int, n_octaves: int) -> bool:
-    """The gate: the ladder radius fits one block's shared memory."""
-    return smem_bytes(R, n_octaves) <= SMEM_LIMIT
+    """The gate: the ladder radius fits one block's shared memory, and
+    the ladder's blurs fit one block's threads (one radius each)."""
+    return (BLURS_PER_OCTAVE * n_octaves <= THREADS
+            and smem_bytes(R, n_octaves) <= SMEM_LIMIT)
 
 
 def ladder_radii(kernels: torch.Tensor, R: int) -> torch.Tensor:

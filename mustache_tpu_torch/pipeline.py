@@ -1,19 +1,24 @@
-"""Per-chromosome orchestration: raw band fill -> one H2D -> device
-normalize -> batches of blocks (slice, densify, fused kernel, epilogue,
-one packed D2H) -> host finish -> overlap dedup.
+"""Per-chromosome orchestration: band fill -> one H2D -> normalize ->
+batches of blocks (slice, densify, detection route, epilogue, one packed
+D2H) -> host finish -> overlap dedup.
 
-Torch port of the device-normalize branch of
-``mustache_tpu/pipeline.py::detect_loops_coo``. The block grid, overlap
-sizes and ownership masks are the reference's (mustache.py:896-960), so
-per-block statistics reproduce the reference's numbers.
+Torch port of ``mustache_tpu/pipeline.py::detect_loops_coo`` without its
+sharded runners. The block grid, overlap sizes and ownership masks are
+the reference's (mustache.py:896-960), so per-block statistics reproduce
+the reference's numbers.
 
-The band goes up in the narrowest lossless encoding (uint8, uint16 or
-nibble-packed uint4, plus an exception list), filled by the native host
-fill (``io/native``) and, for large bands, streamed in two slabs.
+Normalize, by the JAX package's rule: the float32 default fills the RAW
+band on the host in the narrowest lossless encoding (uint8, uint16 or
+nibble-packed uint4, plus an exception list; the native fill of
+``io/native``, streamed in two slabs for large bands) and normalizes it
+on the device (``bandnorm.py``). float64 and ``exact_normalize=True``
+normalize on the host (``normalize.py``) into a band of the compute
+dtype, which goes up once; ``normalize=False`` uploads the raw band in
+the compute dtype. The detection route follows from the configuration
+(``detect.resolve_route``) and is named in the plan line.
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP Queue 1):
-``precision="float64"`` and ``exact_normalize`` (host normalize,
-``normalize.py``) and ``runner`` (sharding).
+``runner`` (sharding).
 """
 
 from __future__ import annotations
@@ -29,10 +34,11 @@ from mustache_tpu_torch.bandnorm import (
 )
 from mustache_tpu_torch.config import DetectionConfig, block_mask_sizes, chunk_grid
 from mustache_tpu_torch.detect import (
-    band_width, build_detector, check_precision, finish_block, unpack_block,
+    band_width, build_detector, finish_block, resolve_route, unpack_block,
 )
 from mustache_tpu_torch.device import resolve_device
 from mustache_tpu_torch.io import native
+from mustache_tpu_torch.normalize import normalize_sparse
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,24 +230,69 @@ def _batch_size(cfg: DetectionConfig, nblocks: int, device: torch.device,
     return min(cap, nblocks)
 
 
-def detect_loops_coo(x, y, v, cfg: DetectionConfig, *,
+def fill_host_band(x, y, v, cfg: DetectionConfig, band_shape, n: int, *,
+                   normalize: bool, exact: bool) -> np.ndarray:
+    """The band of the host-normalize modes, in the compute dtype
+    (``mustache_tpu/pipeline.py:400-412``): normalized by
+    ``normalize_sparse`` with ``exact`` (its native pass fills an f32
+    band directly; an f64 band is filled by scatter), or the raw values
+    when ``normalize`` is False. ``v`` is not modified."""
+    dtype = np.float64 if cfg.precision == "float64" else np.float32
+    band = np.zeros(band_shape, dtype)
+    if normalize:
+        v = np.array(v, dtype=np.float64)   # normalize_sparse works in place
+        work = np.float64 if (exact or dtype == np.float64) else np.float32
+        fuse = band if dtype == np.float32 else None
+        normalize_sparse(x, y, v, cfg.resolution, cfg.distance_px,
+                         exact=exact, work_dtype=work, band_out=fuse, n=n)
+        if fuse is not None:
+            return band
+    if dtype == np.float32:
+        native.fill_band(x, y, v, band)
+    else:
+        native.fill_band_plain(x, y, v, band)
+    return band
+
+
+def normalized_band(x, y, v, cfg: DetectionConfig, band_shape, n: int,
+                    device: torch.device, *, normalize: bool, exact: bool):
+    """ONE host fill and ONE (possibly two-slab) H2D of a chromosome's
+    band, normalized by the JAX package's rule
+    (``mustache_tpu/pipeline.py:360-420``): on the device for the float32
+    normalize (the compact raw band, ``bandnorm.py``), else on the host
+    (:func:`fill_host_band`). Returns ``(band on the device, the plan
+    line's account of what went up)``."""
+    if normalize and not exact and cfg.precision == "float32":
+        upload = stream_band_to_device(x, y, v, band_shape, device)
+        exc = (None if upload.exceptions is None
+               else pad_exceptions(upload.exceptions, band_shape[0]))
+        band, _ = normalize_band_device(upload.band, n, cfg.resolution,
+                                        cfg.distance_px, exceptions=exc,
+                                        packed4=upload.packed4)
+        return band, upload.describe()
+    host = fill_host_band(x, y, v, cfg, band_shape, n, normalize=normalize,
+                          exact=exact)
+    mode = ("exact" if exact else "fast") if normalize else "off"
+    return (upload_band(host, device),
+            f"band={host.dtype.name} bytes={host.nbytes} "
+            f"host_normalize={mode}")
+
+
+def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
                      exact_normalize: bool = False, runner=None,
                      device=None, log=None) -> list[Loop]:
     """Loop calls for one intra-chromosomal COO map (bin coordinates) on
-    ``device``: the card by default ("cuda[:i]" runs the fused kernel);
-    ``device="cpu"`` runs its plain PyTorch version. Unported modes raise
-    ``NotImplementedError`` before the device is resolved, so on any host.
-    ``x``, ``y``, ``v`` are not modified. ``log``: optional callable
-    taking one message string."""
-    if exact_normalize:
-        raise NotImplementedError(
-            "exact_normalize: host normalize not ported yet (ROADMAP Queue "
-            "1, normalize.py + f64/exact modes)")
+    ``device``: the card by default; ``device="cpu"`` runs the kernel
+    route's plain PyTorch version. ``normalize=False`` detects on the raw
+    values; ``exact_normalize`` takes the reference's summation order in
+    the host normalize. Sharded runs raise ``NotImplementedError`` before
+    the device is resolved, so on any host. ``x``, ``y``, ``v`` are not
+    modified. ``log``: optional callable taking one message string."""
     if runner is not None:
         raise NotImplementedError(
             "runner: sharded runs not ported yet (ROADMAP Queue 1, "
             "sharding.py)")
-    check_precision(cfg)
+    route = resolve_route(cfg)
     dev = resolve_device(device)
     if len(v) == 0:
         return []
@@ -254,30 +305,31 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *,
     # blocks are ALWAYS chunk x chunk: when n <= chunk the reference still
     # densifies into a chunk x chunk zero-padded matrix (mustache.py:923)
     width = cfg.chunk_size
-    detector = build_detector(cfg, width, device=dev)   # raises if unsupported
+    detector = build_detector(cfg, width, device=dev)
 
-    # ONE host fill and ONE (possibly two-slab) H2D per chromosome: the
-    # diagonal band in its compact encoding; rows ride the JAX package's
-    # bucket ladder (pad rows are inert)
+    # rows ride the JAX package's bucket ladder (pad rows are inert)
     band_shape = (bucket_rows(max(n, width)), band_width(width, d_px))
-    upload = stream_band_to_device(x, y, v, band_shape, dev)
-    exc = (None if upload.exceptions is None
-           else pad_exceptions(upload.exceptions, band_shape[0]))
-    band, _ = normalize_band_device(upload.band, n, cfg.resolution, d_px,
-                                    exceptions=exc, packed4=upload.packed4)
+    band, sent = normalized_band(x, y, v, cfg, band_shape, n, dev,
+                                 normalize=normalize, exact=exact_normalize)
 
     start, end = chunk_grid(n, width, d_px)
     masks = block_mask_sizes(start, end, d_px)
     nblocks = len(start)
-    # a block holds about 16 * n^2 bytes at its peak (the f32 dense block
-    # and its sentinel copy, the f32 support mask, the bool mask) plus
-    # about 64 * n * Dl bytes of band-sized epilogue state (the sort's
-    # keys and int64 indices, ~20 [n, Dl] maps)
-    B = _batch_size(cfg, nblocks, dev,
-                    per_block=16 * width * width + 64 * width * band_shape[1])
+    if route == "kernel":
+        # a block holds about 16 * n^2 bytes at its peak (the f32 dense
+        # block and its sentinel copy, the f32 support mask, the bool
+        # mask) plus about 64 * n * Dl bytes of band-sized epilogue state
+        # (the sort's keys and int64 indices, ~20 [n, Dl] maps)
+        per_block = 16 * width * width + 64 * width * band_shape[1]
+    else:
+        # the JAX package's XLA per-block size: ~45 n^2 live elements of
+        # the compute dtype through the ladder (mustache_tpu/pipeline.py:
+        # 274-278)
+        per_block = 45 * width * width * band.element_size()
+    B = _batch_size(cfg, nblocks, dev, per_block=per_block)
     if log is not None:
         log(f"n={n} blocks={nblocks} of {width}^2 batch={B} device={dev} "
-            f"{upload.describe()}")
+            f"route={route} precision={cfg.precision} {sent}")
 
     def run(det, idxs) -> np.ndarray:
         # one packed D2H per batch
@@ -338,9 +390,10 @@ def write_loops(path: str, per_chrom: Iterable[tuple[str, str, int, Sequence[Loo
 def find_loops(x, y, v, *, resolution: int = 5000, distance_bp: int = 2_000_000,
                pt: float = 0.2, st: float = 0.88, sigma0: float = 1.6,
                octaves: int = 2, precision: str = "float32",
-               device=None) -> list[Loop]:
+               normalize: bool = True, device=None) -> list[Loop]:
     """One-call API: COO contact map in, loop calls out, on ``device``
-    (the card unless ``device="cpu"``)."""
+    (the card unless ``device="cpu"``). The caller's arrays are left
+    untouched."""
     from mustache_tpu_torch.config import clamp_distance_filter
 
     cfg = DetectionConfig(
@@ -349,4 +402,4 @@ def find_loops(x, y, v, *, resolution: int = 5000, distance_bp: int = 2_000_000,
         pt=pt, st=st, sigma0=sigma0, octaves=octaves, precision=precision,
     )
     return detect_loops_coo(x, y, np.asarray(v, dtype=np.float64), cfg,
-                            device=device)
+                            normalize=normalize, device=device)

@@ -2,7 +2,8 @@
 
 A copy of ``mustache_tpu/scalespace.py`` (framework-free; the port must
 not import the JAX package) plus :func:`ladder_tensor`, which carries the
-f64 ladder weights over to the port's f32 device tensor.
+f64 ladder weights over to the port's device tensor (f32, or f64 for the
+float64 route).
 
 The reference builds, per octave ``o``, twelve Gaussian blurs with sigmas
 ``o * 2^(k/10)`` for ``k = 0..11`` (mustache.py:714-752, s hardcoded 10),
@@ -110,14 +111,16 @@ def build_ladder(octave_values) -> LadderSpec:
     )
 
 
-def ladder_tensor(kernels: np.ndarray, device) -> "torch.Tensor":
+def ladder_tensor(kernels: np.ndarray, device,
+                  dtype=np.float32) -> "torch.Tensor":
     """The ladder taps ``LadderSpec.kernels`` ([S, 2R+1] f64, zero-padded)
-    as the f32 contiguous device tensor the blur kernels read. Rounding to
-    f32 is the one precision step, the same one the JAX f32 path takes
-    (``spec.kernels.astype(float32)``)."""
+    as the contiguous device tensor the blurs read, f32 by default.
+    Rounding to f32 is the one precision step, the same one the JAX f32
+    path takes (``spec.kernels.astype(float32)``); float64 keeps the taps
+    as built."""
     import torch
 
-    return torch.as_tensor(np.ascontiguousarray(kernels, np.float32),
+    return torch.as_tensor(np.ascontiguousarray(kernels, dtype),
                            device=device)
 
 

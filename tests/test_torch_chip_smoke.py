@@ -1,6 +1,6 @@
 """chip_smoke.py off the card: it refuses to run without CUDA, and its
-golden comparison, near-tie check, kernel bound, file writers and band
-check behave as documented."""
+golden comparisons, near-tie check, kernel bound, file writers, band
+check and phase 8's plain kernel route behave as documented."""
 
 import os
 import subprocess
@@ -257,3 +257,45 @@ def test_trace_range_time(tmp_path):
     got = chip_smoke.trace_range_time(str(tmp_path),
                                       ("diff.planes", "diff.epilogue"))
     assert got == {"diff.planes": 1.75, "diff.epilogue": 0.0}
+
+
+def test_phase8_helpers():
+    """Phase 8's float64 row check, its TSV rows of loops, and the plain
+    kernel route (a check only) that it restores afterwards."""
+    import torch
+
+    import mustache_tpu_torch.detect as D
+    from mustache_tpu_torch import DetectionConfig, write_loops
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from mustache_tpu_torch.pipeline import Loop
+    from mustache_tpu_torch.scalespace import build_ladder, ladder_tensor
+
+    _, golden = chip_smoke.read_tsv(chip_smoke.GOLDEN_F64)
+    assert len(golden) == 290
+    assert chip_smoke.compare_exact(golden, golden, "same") == 0.0
+    off = [r[:6] + [repr(float(r[6]) * (1 + 1e-8))] + r[7:] for r in golden]
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_exact(off, golden, "q")
+    assert chip_smoke.compare_exact(off, golden, "q", rtol=1e-7) > 0
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_exact(golden[1:], golden, "rows")
+
+    loops = [Loop(10, 30, 1.25e-05, 2.111212657236631), Loop(7, 9, 0.5, 1.0)]
+    path = os.path.join(chip_smoke.tempfile.mkdtemp(), "l.tsv")
+    write_loops(path, [("chr1", "chr1", 5000, loops)])
+    assert chip_smoke.loops_tsv_rows(loops, "chr1", 5000) == \
+        chip_smoke.read_tsv(path)[1]
+
+    cfg = DetectionConfig(octaves=5)
+    spec = build_ladder((1.6, 3.2))
+    taps = ladder_tensor(spec.kernels, torch.device("cpu"))
+    cs = torch.rand(1, 96, 96)
+    nzf = (cs > 0.5).float()
+    kw = dict(R=spec.radius, n_octaves=2, planes_per_octave=9, DB=32)
+    saved = D.resolve_route, fl.fused_ladder_nms_batched
+    with chip_smoke.plain_kernel_route():
+        assert D.resolve_route(cfg) == "kernel"
+        got = fl.fused_ladder_nms_batched(cs, nzf, taps, radii=None, **kw)
+    assert (D.resolve_route, fl.fused_ladder_nms_batched) == saved
+    want = fl.fused_ladder_nms_reference(cs, nzf, taps, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

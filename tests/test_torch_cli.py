@@ -192,7 +192,6 @@ def test_profile_dir_writes_a_trace(two_chroms, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--engine-precision", "float64"], "float64"),
     (["--engine-mesh", "block"], "sharding"),
     (["--engine-mesh", "rowshard"], "sharding"),
     (["--engine-nprocs", "2"], "sharding"),

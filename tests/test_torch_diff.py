@@ -307,10 +307,10 @@ def test_find_diff_loops_copies_and_configures(monkeypatch):
     inputs = [a.copy() for a in (x1, y1, v1, x2, y2, v2)]
     seen = {}
 
-    def fake(*arrays, cfg, device=None):
+    def fake(*arrays, cfg, normalize, device=None):
         for a in arrays:
             a[:] = 0
-        seen.update(cfg=cfg, device=device)
+        seen.update(cfg=cfg, normalize=normalize, device=device)
         return [(1, 2, 0.01, 1.6, 1)]
 
     monkeypatch.setattr(tdiff, "detect_diff_loops_coo",
@@ -326,7 +326,7 @@ def test_find_diff_loops_copies_and_configures(monkeypatch):
     assert cfg.distance_bp == jax_clamp(9_000_000, 5000, diff=True)
     assert (cfg.pt, cfg.pt2, cfg.st, cfg.precision) == (0.1, 0.05, 0.8,
                                                         "float32")
-    assert seen["device"] == "cpu"
+    assert seen["device"] == "cpu" and seen["normalize"] is True
 
 
 def test_empty_input_gives_no_rows():
@@ -350,19 +350,29 @@ def test_no_device_means_the_card(monkeypatch):
 
 @pytest.mark.parametrize("device", [None, "cpu", "cuda"])
 def test_unported_modes_raise(device, monkeypatch):
-    """An unported mode says so on any host and for any device, before the
-    device is resolved."""
+    """Sharded runs, still unported, say so on any host and for any device,
+    before the device is resolved. float64, exact_normalize and
+    normalize=False are ported: they are accepted, so without CUDA a card
+    device raises for want of the card, and on the CPU they return (their
+    parity with the JAX package: tests/test_torch_f64_diff.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, y, v, _ = synthetic_hic(300, 40, seed=1, n_loops=2)
     cfg = DetectionConfig(resolution=5000, distance_bp=200_000)
-    with pytest.raises(NotImplementedError, match="float64"):
-        detect_diff_loops_coo(x, y, v, x, y, v,
-                              cfg.with_(precision="float64"), device=device)
-    with pytest.raises(NotImplementedError, match="float64"):
-        find_diff_loops(x, y, v, x, y, v, precision="float64", device=device)
-    with pytest.raises(NotImplementedError, match="exact_normalize"):
-        detect_diff_loops_coo(x, y, v, x, y, v, cfg, exact_normalize=True,
-                              device=device)
     with pytest.raises(NotImplementedError, match="sharding"):
         detect_diff_loops_coo(x, y, v, x, y, v, cfg, runner=object(),
                               device=device)
+    # on the CPU an empty map shows the mode accepted without a run
+    e = np.zeros(0, np.int64)
+    m = (e, e, e.astype(float)) if device == "cpu" else (x, y, v)
+    calls = [lambda: detect_diff_loops_coo(
+                 *m, *m, cfg.with_(precision="float64"), device=device),
+             lambda: find_diff_loops(*m, *m, precision="float64",
+                                     normalize=False, device=device),
+             lambda: detect_diff_loops_coo(*m, *m, cfg, exact_normalize=True,
+                                           device=device)]
+    for call in calls:
+        if device == "cpu":
+            assert call() == []
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                call()

@@ -178,7 +178,6 @@ def test_diff_cli_bad_resolution(text_runs, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--engine-precision", "float64"], "float64"),
     (["--engine-mesh", "block"], "sharding"),
     (["--engine-mesh", "rowshard"], "sharding"),
     (["--engine-nprocs", "2"], "sharding"),

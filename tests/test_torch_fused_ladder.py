@@ -162,12 +162,13 @@ def test_shared_memory_gate():
     spec = build_ladder(DetectionConfig(sigma0=1.6, octaves=6).octave_values)
     assert fl.smem_bytes(spec.radius, 6) > fl.SMEM_LIMIT
     assert not fl.kernel_fits(spec.radius, 6)
-    with pytest.raises(ValueError, match="shared memory"):
-        build_detector(DetectionConfig(octaves=6), 2000,
-                       device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="float64"):
-        build_detector(DetectionConfig(precision="float64"), 2000,
-                       device=resolve_device("cpu"))
+    # a ladder beyond the kernel's shared memory takes the ladder route
+    # (detect.resolve_route), on every device; so does float64
+    assert build_detector(DetectionConfig(octaves=6), 2000,
+                          device=resolve_device("cpu")).route == "ladder"
+    det = build_detector(DetectionConfig(precision="float64"), 2000,
+                         device=resolve_device("cpu"))
+    assert det.route == "ladder" and det.taps.dtype == torch.float64
 
 
 @pytest.mark.parametrize("octaves", [2, 3, 4])

@@ -1,9 +1,10 @@
 """The port never imports JAX, the JAX package, pandas or h5py: checked in
 a fresh interpreter (this test process has JAX loaded already through
-conftest.py) that imports every module of the port and runs detection,
-the CLI on the CPU from a text file and a .hic file, and the
-differential CLI on two text files. h5py may load
-only inside the .cool reader's call, which this script does not make."""
+conftest.py) that imports every module of the port and runs detection
+(float32 and float64), the CLI on the CPU from a text file and from a
+.hic file at float64, and the differential CLI on two text files. h5py
+may load only inside the .cool reader's call, which this script does not
+make."""
 
 import os
 import subprocess
@@ -18,8 +19,8 @@ import numpy as np
 import mustache_tpu_torch as mt
 import mustache_tpu_torch.__main__  # noqa: F401
 from mustache_tpu_torch import (bandnorm, cli, config, detect, device,  # noqa: F401
-                                diff, diff_cli, faults, manifest, pipeline,
-                                runlog, scalespace)
+                                diff, diff_cli, faults, ladder, manifest,
+                                normalize, pipeline, runlog, scalespace)
 from mustache_tpu_torch.io import bias, chrom, cool, hic, hicpro, native, text  # noqa: F401
 from mustache_tpu_torch.kernels import build, fused_ladder  # noqa: F401
 from synthetic import synthetic_hic
@@ -27,6 +28,8 @@ from hic_writer import write_hic
 x, y, v, _ = synthetic_hic(400, 60, seed=3, n_loops=6)
 cfg = mt.DetectionConfig(resolution=5000, distance_bp=300_000, pt=0.1, st=0.8)
 loops = mt.detect_loops_coo(x, y, v, cfg, device="cpu")
+f64 = mt.detect_loops_coo(x, y, v, cfg.with_(precision="float64"),
+                          device="cpu")
 tmp = tempfile.mkdtemp()
 txt, h = os.path.join(tmp, "c.txt"), os.path.join(tmp, "c.hic")
 with open(txt, "w") as fh:
@@ -35,8 +38,8 @@ with open(txt, "w") as fh:
 write_hic(h, [("chr1", 400 * 5000)], 5000, {"chr1": (x, y, v)}, version=8)
 rcs = [cli.main(["-f", f, "-ch", "1", "-r", "5kb", "-d", "300kb", "-o",
                  os.path.join(tmp, "o.tsv"), "-pt", "0.1", "-st", "0.8",
-                 "-norm", "NONE", "--engine-platform", "cpu"])
-       for f in (txt, h)]
+                 "-norm", "NONE", "--engine-platform", "cpu"] + prec)
+       for f, prec in ((txt, []), (h, ["--engine-precision", "float64"]))]
 x2, y2, v2, _ = synthetic_hic(400, 60, seed=4, n_loops=6)
 txt2 = os.path.join(tmp, "c2.txt")
 with open(txt2, "w") as fh:
@@ -48,7 +51,7 @@ rcs.append(diff_cli.main(["-f1", txt, "-f2", txt2, "-ch", "1", "-r", "5kb",
                           "--engine-platform", "cpu"]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mustache_tpu", "pandas", "h5py"))
-print("LOOPS", len(loops))
+print("LOOPS", len(loops), len(f64))
 print("RCS", rcs)
 print("BAD_MODULES", bad)
 """
@@ -63,4 +66,5 @@ def test_port_imports_and_runs_without_jax():
     out = res.stdout.splitlines()
     assert "BAD_MODULES []" in out, res.stdout
     assert "RCS [0, 0, 0]" in out, res.stdout
-    assert int(next(l for l in out if l.startswith("LOOPS")).split()[1]) > 0
+    counts = next(l for l in out if l.startswith("LOOPS")).split()[1:]
+    assert int(counts[0]) > 0 and int(counts[1]) > 0

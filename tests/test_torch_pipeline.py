@@ -65,17 +65,28 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("device", [None, "cpu", "cuda"])
 def test_unported_modes_raise(device, monkeypatch):
-    """An unported mode says so on any host and for any device, before
-    the device is resolved."""
+    """Sharded runs, still unported, say so on any host and for any device,
+    before the device is resolved. float64, exact_normalize and
+    normalize=False are ported: they are accepted, so without CUDA a card
+    device raises for want of the card, and on the CPU they return (their
+    parity with the JAX package: tests/test_torch_f64_pipeline.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, y, v, _ = synthetic_hic(300, 40, seed=1, n_loops=2)
     cfg = DetectionConfig(**KW)
-    with pytest.raises(NotImplementedError, match="float64"):
-        detect_loops_coo(x, y, v, cfg.with_(precision="float64"),
-                         device=device)
-    with pytest.raises(NotImplementedError, match="float64"):
-        find_loops(x, y, v, precision="float64", device=device)
-    with pytest.raises(NotImplementedError, match="exact_normalize"):
-        detect_loops_coo(x, y, v, cfg, exact_normalize=True, device=device)
     with pytest.raises(NotImplementedError, match="sharding"):
         detect_loops_coo(x, y, v, cfg, runner=object(), device=device)
+    # on the CPU an empty map shows the mode accepted without a run
+    e = np.zeros(0, np.int64)
+    m = (e, e, e.astype(float)) if device == "cpu" else (x, y, v)
+    calls = [lambda: detect_loops_coo(*m, cfg.with_(precision="float64"),
+                                      device=device),
+             lambda: find_loops(*m, precision="float64", normalize=False,
+                                device=device),
+             lambda: detect_loops_coo(*m, cfg, exact_normalize=True,
+                                      device=device)]
+    for call in calls:
+        if device == "cpu":
+            assert call() == []
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                call()

@@ -19,12 +19,25 @@ modes) and writes the reference-format TSV:
   ``pt=0.1, st=0.8, pt2=0.1``) through the JAX ``detect_diff_loops_coo``
   in sort-mode BH, to ``tests/data/torch_port_chr21_5kb_diff_golden.tsv``:
   the reference-format columns plus ``TAG`` (1 loop1, 2 diffloop1, 3
-  loop2, 4 diffloop2), rows in the engine's block order.
+  loop2, 4 diffloop2), rows in the engine's block order;
+* ``f64_5kb`` and ``diff_f64_5kb``: the ``5kb`` and ``diff5kb``
+  workloads at ``precision="float64"`` (the JAX package's XLA path and
+  host normalize, sort-mode BH), to
+  ``tests/data/torch_port_chr21_5kb_f64_golden.tsv`` and
+  ``tests/data/torch_port_chr21_5kb_diff_f64_golden.tsv``;
+* ``exact_5kb``: the ``5kb`` workload at float32 with
+  ``exact_normalize=True`` (the host normalize in the reference's
+  summation order, then the float32 XLA path; sort-mode BH), to
+  ``tests/data/torch_port_chr21_5kb_exact_golden.tsv``;
+* ``cpu_f64``: the small float64 cases of ``tests/torch_port_cases.py``
+  (pipelines, differential calls and both CLIs, sort-mode BH), to
+  ``tests/data/torch_port_cpu_f64_golden.json``.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--slice 1kb|diff5kb] [--out PATH]
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--slice NAME] [--out PATH]
 """
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -43,6 +56,15 @@ SLICES = {
                                 density=0.95), 1000, "chr1", "sort"),
     "diff5kb": ((9629, 400), dict(seed=2021, n_loops=300, loop_strength=3.0),
                 5000, "chr21", "sort"),
+    "f64_5kb": ((9629, 400), dict(seed=2021, n_loops=300, loop_strength=3.0),
+                5000, "chr21", "sort"),
+    "diff_f64_5kb": ((9629, 400), dict(seed=2021, n_loops=300,
+                                       loop_strength=3.0),
+                     5000, "chr21", "sort"),
+    "exact_5kb": ((9629, 400), dict(seed=2021, n_loops=300,
+                                    loop_strength=3.0),
+                  5000, "chr21", "sort"),
+    "cpu_f64": (None, None, 5000, None, "sort"),
 }
 DIFF_SEED2 = 2022      # the diff leg's second condition (bench.py)
 OUT = {"5kb": os.path.join(ROOT, "tests", "data",
@@ -50,7 +72,15 @@ OUT = {"5kb": os.path.join(ROOT, "tests", "data",
        "1kb": os.path.join(ROOT, "tests", "data",
                            "torch_port_1kb_golden.tsv"),
        "diff5kb": os.path.join(ROOT, "tests", "data",
-                               "torch_port_chr21_5kb_diff_golden.tsv")}
+                               "torch_port_chr21_5kb_diff_golden.tsv"),
+       "f64_5kb": os.path.join(ROOT, "tests", "data",
+                               "torch_port_chr21_5kb_f64_golden.tsv"),
+       "diff_f64_5kb": os.path.join(ROOT, "tests", "data",
+                                    "torch_port_chr21_5kb_diff_f64_golden.tsv"),
+       "exact_5kb": os.path.join(ROOT, "tests", "data",
+                                 "torch_port_chr21_5kb_exact_golden.tsv"),
+       "cpu_f64": os.path.join(ROOT, "tests", "data",
+                               "torch_port_cpu_f64_golden.json")}
 DIFF_HEADER = ("BIN1_CHR\tBIN1_START\tBIN1_END\tBIN2_CHROMOSOME\t"
                "BIN2_START\tBIN2_END\tFDR\tDETECTION_SCALE\tTAG\n")
 
@@ -65,12 +95,82 @@ def write_diff_rows(path, chrom, res, rows):
                      f"{b2 * res}\t{(b2 + 1) * res}\t{q}\t{scale}\t{tag}\n")
 
 
+def _rows(loops):
+    """Loop rows as JSON lists: [bin1, bin2, q, scale(, tag)]."""
+    return [[int(lp.bin1), int(lp.bin2), float(lp.q), float(lp.scale)]
+            if hasattr(lp, "bin1") else
+            [int(lp[0]), int(lp[1]), float(lp[2]), float(lp[3]), int(lp[4])]
+            for lp in loops]
+
+
+def cpu_f64_golden(out):
+    """Run the JAX package on every case of tests/torch_port_cases.py and
+    write their rows (and the CLIs' output files) to one JSON file."""
+    import tempfile
+
+    import torch_port_cases as C
+    from mustache_tpu.cli import main as cli_main
+    from mustache_tpu.config import DetectionConfig
+    from mustache_tpu.diff import detect_diff_loops_coo, find_diff_loops
+    from mustache_tpu.diff_cli import main as diff_cli_main
+    from mustache_tpu.pipeline import detect_loops_coo, find_loops
+
+    gold = {}
+    for name, (_, _, ckw, kw) in C.SINGLE.items():
+        t0 = time.time()
+        x, y, v = C.single_map(name)
+        gold[name] = _rows(detect_loops_coo(
+            x, y, v.copy(), DetectionConfig(**C.cfg_kwargs(ckw)), **kw))
+        print(f"{name}: {len(gold[name])} rows ({time.time() - t0:.1f} s)")
+    for name, (_, _, _, ckw, kw) in C.DIFF.items():
+        t0 = time.time()
+        x1, y1, v1, x2, y2, v2 = C.diff_maps(name)
+        gold[name] = _rows(detect_diff_loops_coo(
+            x1, y1, v1.copy(), x2, y2, v2.copy(),
+            DetectionConfig(**C.cfg_kwargs(ckw)), **kw))
+        print(f"{name}: {len(gold[name])} rows ({time.time() - t0:.1f} s)")
+    gold["find_fast"] = _rows(find_loops(*C.single_map("find_fast"),
+                                         **C.FIND_KW))
+    gold["find_diff_raw"] = _rows(find_diff_loops(
+        *C.diff_maps("find_diff_raw"), **C.FIND_DIFF_KW))
+    print(f"find_fast: {len(gold['find_fast'])} rows, find_diff_raw: "
+          f"{len(gold['find_diff_raw'])} rows")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        txt = C.write_text(os.path.join(tmp, "two.txt"), C.CLI_CHROMS)
+        ref = os.path.join(tmp, "cli.tsv")
+        assert cli_main(["-f", txt, "-o", ref] + C.CLI_FLAGS
+                        + ["--engine-platform", "cpu"]) == 0
+        gold["cli_f64"] = open(ref).read()
+        print(f"cli_f64 ({time.time() - t0:.1f} s)")
+        t0 = time.time()
+        paths = [C.write_text(os.path.join(tmp, f"{c}.txt"), chroms)
+                 for c, chroms in C.DIFF_CLI_CONDS.items()]
+        ref = os.path.join(tmp, "diff")
+        assert diff_cli_main(["-f1", paths[0], "-f2", paths[1], "-o", ref]
+                             + C.DIFF_CLI_FLAGS
+                             + ["--engine-platform", "cpu",
+                                "--engine-mesh", "off"]) == 0
+        gold["diff_cli_f64"] = {
+            sfx: open(ref + sfx).read()
+            for sfx in (".loop1", ".diffloop1", ".loop2", ".diffloop2")}
+        print(f"diff_cli_f64 ({time.time() - t0:.1f} s)")
+    with open(out, "w") as fh:
+        fh.write("{\n" + ",\n".join(
+            f"{json.dumps(k)}: {json.dumps(v)}" for k, v in gold.items())
+            + "\n}\n")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slice", choices=sorted(SLICES), default="5kb")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     out = args.out or OUT[args.slice]
+    if "f64" in args.slice:
+        # float64 arrays stay float64 in JAX only with x64 on (the JAX
+        # package's tests turn it on in tests/conftest.py)
+        os.environ["JAX_ENABLE_X64"] = "true"
 
     import jax
 
@@ -82,19 +182,26 @@ def main():
     shape, kw, res, chrom, bh_mode = SLICES[args.slice]
     if bh_mode:
         jdetect._BH_MODE = bh_mode
-    x, y, v, _ = synthetic_hic(*shape, **kw)
-    cfg = DetectionConfig(resolution=res, distance_bp=2_000_000, pt=0.1,
-                          st=0.8, pt2=0.1, precision="float32")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     t0 = time.time()
-    if args.slice == "diff5kb":
+    if args.slice == "cpu_f64":
+        cpu_f64_golden(out)
+        print(f"-> {out} ({time.time() - t0:.1f} s, jax {jax.__version__} "
+              f"on {jax.default_backend()}, BH {jdetect._BH_MODE})")
+        return
+    x, y, v, _ = synthetic_hic(*shape, **kw)
+    cfg = DetectionConfig(
+        resolution=res, distance_bp=2_000_000, pt=0.1, st=0.8, pt2=0.1,
+        precision="float64" if "f64" in args.slice else "float32")
+    if args.slice in ("diff5kb", "diff_f64_5kb"):
         from mustache_tpu.diff import detect_diff_loops_coo
 
         x2, y2, v2, _ = synthetic_hic(*shape, **dict(kw, seed=DIFF_SEED2))
         loops = detect_diff_loops_coo(x, y, v, x2, y2, v2, cfg)
         write_diff_rows(out, chrom, cfg.resolution, loops)
     else:
-        loops = detect_loops_coo(x, y, v, cfg)
+        loops = detect_loops_coo(x, y, v, cfg,
+                                 exact_normalize=args.slice == "exact_5kb")
         write_loops(out, [(chrom, chrom, cfg.resolution, loops)])
     print(f"{len(loops)} rows -> {out} ({time.time() - t0:.1f} s, "
           f"jax {jax.__version__} on {jax.default_backend()}, BH "
