@@ -417,17 +417,20 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
     masks = block_mask_sizes(start, end, d_px)
     nblocks = len(start)
     if route == "kernel":
-        # a block of the batch holds about 28 * n^2 bytes at its peak, in
-        # the stacked preamble: both conditions' widened slices, sentinel
-        # copies and temporaries, f32 and bool supports (0.74 GiB peak
-        # for the chr21 diff workload, B=6 at n=2000, bands included, on
-        # an NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.py phase 7). The
-        # difference planes and the epilogue run one block at a time:
-        # about 48 * n^2 bytes of conv scratch and 128 * n * Dl bytes of
-        # two tables' state once per batch.
-        B = _batch_size(cfg, nblocks, dev, per_block=28 * width * width,
-                        reserve=48 * width * width
-                        + 128 * width * band1.shape[1])
+        # a block of the batch holds 28 * n^2 + 80 * n * Dl bytes at its
+        # peak: the stacked preamble (both conditions' widened slices,
+        # sentinel copies, supports), then the difference planes, which
+        # run on every real block of the batch at once (the dense
+        # difference, its padded copies, the vertical-pass slabs and the
+        # band blurs). tools/diff_batch_memory.py measured 191.7 MB a
+        # block at n=2000, Dl=512 (127.0 MB of it the planes) and
+        # 1079.0 MB at n=4000, Dl=2048 (769.5 MB), on an NVIDIA H100
+        # 80GB HBM3 at 700 W. The epilogue runs one block at a time: two
+        # tables' state, at most 128 * n * Dl bytes once per batch.
+        Dl = band1.shape[1]
+        B = _batch_size(cfg, nblocks, dev,
+                        per_block=28 * width * width + 80 * width * Dl,
+                        reserve=128 * width * Dl)
     else:
         # the JAX package's XLA cap for the triple ladder: ~135 n^2 live
         # elements of the compute dtype per block (mustache_tpu/diff.py:

@@ -6,7 +6,8 @@ Torch port of the band and normalize halves of
 :250-424). ``band_fill.cpp`` and ``normalize.cpp`` (copies of the JAX
 package's functions) are compiled with g++ at first use into the port's
 build cache (``kernels/build.py``, keyed by a hash of the source); a
-failed build raises, and nothing here falls back to numpy. Argument dtypes and
+failed build raises, and nothing here falls back to numpy (``available``
+only says whether a compiler is found). Argument dtypes and
 contiguity are checked in Python before any pointer is passed; a wrong
 one raises ``TypeError``.
 
@@ -86,6 +87,21 @@ def normalize_library():
     from mustache_tpu_torch.kernels import build
 
     return build.load("normalize", bind_normalize, src=NORM_SRC)
+
+
+def available() -> bool:
+    """Whether the native host normalize can be built here: a host C++
+    compiler is found (``kernels/build.py::gxx``), as the JAX package's
+    ``available()`` says whether its prebuilt library loads. Without one,
+    ``normalize.normalize_sparse`` runs its numpy fast path, as the JAX
+    package's does; with one, a failed build raises."""
+    from mustache_tpu_torch.kernels import build
+
+    try:
+        build.gxx()
+    except RuntimeError:
+        return False
+    return True
 
 
 def normalize_coo(x, y, v, n_bins, Dv, F, band_out=None,

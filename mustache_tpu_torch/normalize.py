@@ -23,8 +23,9 @@ Two regimes, selected exactly as in the reference:
 ``exact=True`` switches the local regime's window sums to ``np.convolve``
 per diagonal, reproducing the reference's floating-point summation order
 bit-for-bit (used by golden tests; the cumsum fast path agrees to ~1e-10).
-``use_native=False`` takes the numpy fast path, which the JAX package
-takes when its native library is missing.
+Where no host C++ compiler can build the native core
+(``io.native.available()``), the local regime's fast pass runs its numpy
+twin, as the JAX package's does without its prebuilt library.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import math
 import warnings
 
 import numpy as np
+
+from mustache_tpu_torch.io import native
 
 
 def _moving_window_sums(a: np.ndarray, F: int, exact: bool,
@@ -95,8 +98,7 @@ def _grouped_mean_std(d: np.ndarray, v: np.ndarray, D: int):
 
 def normalize_sparse(x, y, v, resolution: int, distance_in_px: int, *,
                      exact: bool = False, work_dtype=np.float64,
-                     band_out=None, n: int | None = None,
-                     use_native: bool = True):
+                     band_out=None, n: int | None = None):
     """Normalize COO values ``v`` in place; returns per-diagonal p-weights.
 
     Mirrors the reference contract: ``v`` is mutated, and the returned
@@ -115,10 +117,6 @@ def normalize_sparse(x, y, v, resolution: int, distance_in_px: int, *,
 
     ``n``: bin count if the caller already knows it (saves two 18M-entry
     reductions at 1kb scale; this host throttles hard on memory passes).
-
-    ``use_native``: the local regime's non-exact pass runs the native core
-    (built at first use; a failed build raises); False runs its numpy
-    twin.
     """
     x = np.asarray(x)
     y = np.asarray(y)
@@ -144,12 +142,11 @@ def normalize_sparse(x, y, v, resolution: int, distance_in_px: int, *,
 
             Dv = min(D, n)  # diagonals beyond n are empty rows of size 0
 
-            if not exact and use_native:
+            if not exact and native.available():
                 # fast path: one call into the threaded C++ core (grouping,
                 # global stats, windowed z, write-back, and the band fill
-                # all native — the numpy glue dominated at 1kb scale)
-                from mustache_tpu_torch.io import native
-
+                # all native — the numpy glue dominated at 1kb scale); a
+                # failed build raises
                 vv = np.ascontiguousarray(v, np.float64)
                 weights, n_skipped = native.normalize_coo(
                     x, y, vv, n, Dv, F, band_out=band_out)

@@ -31,12 +31,12 @@ def _both(monkeypatch, regime, *, exact, use_native, band):
     vt, vj = v.copy(), v.copy()
     bt = np.zeros((n, 128), np.float32) if band else None
     bj = np.zeros((n, 128), np.float32) if band else None
-    wt = normalize_sparse(x, y, vt, 5000, d_px, exact=exact,
-                          use_native=use_native, band_out=bt)
     if not use_native:
-        # the JAX package's numpy fast path is its fallback without the
+        # both packages' numpy fast path: their fallback without the
         # native library
+        monkeypatch.setattr(native, "available", lambda: False)
         monkeypatch.setattr(jnative, "available", lambda: False)
+    wt = normalize_sparse(x, y, vt, 5000, d_px, exact=exact, band_out=bt)
     wj = jax_normalize(x, y, vj, 5000, d_px, exact=exact, band_out=bj)
     assert not np.array_equal(vt, v)                  # it did normalize
     return (vt, wt, bt), (vj, wj, bj)
@@ -72,17 +72,27 @@ def test_native_matches_jax_native(monkeypatch, band):
         assert np.array_equal(bt != 0, bj != 0)
 
 
-def test_native_matches_numpy_twin():
+def test_native_matches_numpy_twin(monkeypatch):
     """The native pass against the port's own numpy fast path (the
     reference's cumsum windows): 1e-8, the JAX package's own tolerance
     between the two (tests/test_normalize.py)."""
     n, d_px, seed = MAPS["local"]
     x, y, v, _ = synthetic_hic(n, d_px, seed=seed)
     a, b = v.copy(), v.copy()
+    assert native.available()
     wa = normalize_sparse(x, y, a, 5000, d_px)
-    wb = normalize_sparse(x, y, b, 5000, d_px, use_native=False)
+    monkeypatch.setattr(native, "available", lambda: False)
+    wb = normalize_sparse(x, y, b, 5000, d_px)
     np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-8)
     np.testing.assert_allclose(wa, wb, rtol=1e-12)
+
+
+def test_available_follows_the_compiler(monkeypatch):
+    """``available`` reports whether a host C++ compiler is found; it
+    builds nothing."""
+    assert native.available()
+    monkeypatch.setenv("CXX", "no-such-compiler-mtpu")
+    assert not native.available()
 
 
 def test_native_rejects_bad_arrays():
