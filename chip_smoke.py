@@ -80,7 +80,23 @@ Phases, in order; any failure exits non-zero:
    detection state of the 6 blocks under CUDA events; and sigma0 1.6
    with 5 octaves (radius 110, beyond the kernel's shared memory) on the
    ladder route, held to the fused kernel's plain version on the card
-   under phase 4's rule.
+   under phase 4's rule;
+9. inter-chromosomal calling and the native ``.hic`` decoder
+   (``inter.py``, ``io/native/hic_decode.cpp``): a whole chr21 x chr22
+   pair at 5 kb (``synthetic_inter(9342, 10164, seed=2121, n_loops=300)``,
+   ~47 M contacts, a 5 x 6 grid of 2000^2 tiles) through
+   ``detect_inter_loops_coo`` with no device, against the JAX package's
+   CPU golden (tests/data/torch_port_inter_5kb_golden.tsv,
+   ``tools/make_torch_golden.py --slice inter_5kb``): rows in order,
+   anchors and scales exact, q within rtol 2e-4; no fused kernel launch;
+   walls cold and warm, peak device memory, H2D bytes, device ms by
+   ``inter.*`` range; the float64 run as the judge of both f32 paths; the
+   per-tile peak memory at B=1 and 3 (the batch rule's slope); the
+   device-built tiles against the JAX-style host densify; the CLI with
+   ``-ch c1 -ch2 c2`` from a v8 ``.hic`` (2000 x 1500 bins) against the
+   direct call on the same contacts; and the native decoder against the
+   Python one on phase 5's and this phase's files (equal arrays, both
+   timed), reporting whether zlib.h was found.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -118,6 +134,8 @@ GOLDEN_EXACT = os.path.join(ROOT, "tests", "data",
                             "torch_port_chr21_5kb_exact_golden.tsv")
 GOLDEN_DIFF_F64 = os.path.join(ROOT, "tests", "data",
                                "torch_port_chr21_5kb_diff_f64_golden.tsv")
+GOLDEN_INTER = os.path.join(ROOT, "tests", "data",
+                            "torch_port_inter_5kb_golden.tsv")
 # the chr21 5 kb workload (bench.py::build_workload) and the 1 kb slice
 # (bench.py::build_workload_1kb): synthetic_hic args and kwargs
 CHR21 = ((9629, 400), dict(seed=2021, n_loops=300, loop_strength=3.0))
@@ -127,6 +145,10 @@ PT2 = 0.1             # bench diff leg's differential threshold
 # phase 7's stacked batch: B=3 per condition, the third a pad slot, so
 # kernel slots 2 and 5 are pads
 DIFF_STARTS = [0, 3200, -1]
+# phase 9: chr21 x chr22 at 5 kb (46,709,983 and 50,818,468 bp) and the
+# settings of tests/test_inter.py::test_cli_inter_end_to_end
+CHR21_X_22 = ((9342, 10164), dict(seed=2121, n_loops=300))
+INTER_PT, INTER_ST = 0.1, 0.5
 SLICE_1KB = ((12000, 2000), dict(seed=1011, n_loops=150, loop_strength=3.0,
                                  density=0.95))
 FP32_FLOPS = 67e12    # H100 SXM FP32 peak outside the tensor cores (700 W)
@@ -695,10 +717,14 @@ def phase_cli_files(dev, workdir):
             for _ in range(2):
                 fl.LAUNCHES = 0
                 native.FILLS = 0
+                native.DECODES = 0
                 rc, events, wall = run_cli(
                     ["-f", path, "-ch", "chr21", "-r", "5kb", "-o", out,
                      "-pt", str(PT), "-st", str(ST)])
                 launches, fills = fl.LAUNCHES, native.FILLS
+                if label == "hic" and native.DECODES <= 0:
+                    fail("CLI on hic: blocks not decoded by the native "
+                         "decoder")
                 if rc != 0:
                     fail(f"CLI on {label} exited {rc}")
                 plan = event(events, "detect_plan")["detail"]
@@ -1428,28 +1454,389 @@ def phase_ladder_route(dev, workdir):
     return rep
 
 
-def build_all():
-    """Build the fused kernel (nvcc), the native band fill and the host
-    normalize (g++) at the same time, then load them."""
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+def inter_tsv_rows(rows, c1, c2, res):
+    """Inter rows ``[x, y, q, sigma]`` as the TSV fields the CLI writes."""
+    from mustache_tpu_torch.pipeline import Loop
+
+    return [Loop(int(r[0]), int(r[1]), float(r[2]), float(r[3]))
+            .to_row(c1, c2, res).rstrip("\n").split("\t") for r in rows]
+
+
+def compare_inter(rows, golden, tag="9"):
+    """Rows in order, anchors and scale strings exact, q within RTOL (at
+    these q, 1e-27 to 1e-18, that is |log q| within 2e-4: about each f32
+    path's distance from float64, which the caller's judge reports); a
+    row present on one side only must have q within RTOL of pt. Returns
+    (common rows, q max rel err, log q max abs err)."""
+    def strip(rs, other):
+        keys = {tuple(r[:6]) for r in other}
+        kept = []
+        for r in rs:
+            if tuple(r[:6]) not in keys:
+                if not math.isclose(float(r[6]), INTER_PT, rel_tol=RTOL):
+                    fail(f"[{tag}] row {r[:6]} q={r[6]} only on one side")
+                say(f"[{tag}] near-pt row on one side only: {r}")
+                continue
+            kept.append(r)
+        return kept
+
+    a, b = strip(rows, golden), strip(golden, rows)
+    if [r[:6] + r[7:] for r in a] != [r[:6] + r[7:] for r in b]:
+        fail(f"[{tag}] rows differ from the golden in anchors, scale or "
+             f"order")
+    q_err, lq_err = 0.0, 0.0
+    for r, g in zip(a, b):
+        qr, qg = float(r[6]), float(g[6])
+        if abs(qr - qg) > RTOL * qg:
+            fail(f"[{tag}] q {qr} vs golden {qg} in {r[:6]}")
+        q_err = max(q_err, abs(qr - qg) / qg)
+        lq_err = max(lq_err, abs(math.log(qr) - math.log(qg)))
+    return len(a), q_err, lq_err
+
+
+def anchor_census(rows, anchors, cuts1, cuts2) -> dict:
+    """How the rows meet the planted anchors: anchors with a row within 2
+    bins, anchors with none (and how many of those lie within 3 bins of
+    a tile-ownership cut, ``cuts1`` on x and ``cuts2`` on y), rows near
+    no anchor, and pairs of rows within 3 bins of each other (a cluster
+    two tiles both emitted)."""
+    def near(a, b, d):
+        return abs(a[0] - b[0]) <= d and abs(a[1] - b[1]) <= d
+
+    def at_cut(a):
+        return (min((abs(a[0] - c) for c in cuts1), default=99) <= 3
+                or min((abs(a[1] - c) for c in cuts2), default=99) <= 3)
+    missed = [a for a in anchors if not any(near(r, a, 2) for r in rows)]
+    return {"anchors": len(anchors),
+            "recovered": len(anchors) - len(missed),
+            "missed": len(missed),
+            "missed_at_a_cut": sum(at_cut(a) for a in missed),
+            "rows_near_no_anchor": sum(
+                not any(near(r, a, 2) for a in anchors) for r in rows),
+            "row_pairs_within_3": sum(
+                near(rows[i], rows[j], 3) for i in range(len(rows))
+                for j in range(i + 1, len(rows)))}
+
+
+def host_densify_ms(x, y, v, starts1, ends1, starts2, ends2, chunk, dev):
+    """The JAX package's tile path (``mustache_tpu/inter.py:339-352``):
+    stable x-sort, then every tile densified on the host in numpy and sent
+    up; ms until the card holds them all."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    order = np.argsort(x, kind="stable")
+    xs, ys = x[order], y[order]
+    vs = v[order].astype(np.float32)
+    row_start = np.searchsorted(xs, np.arange(ends1[-1] + 1))
+    tiles = []
+    for i in range(len(starts1)):
+        p0, p1 = row_start[starts1[i]], row_start[ends1[i]]
+        for j in range(len(starts2)):
+            cc = np.zeros((chunk, chunk), np.float32)
+            sel = (ys[p0:p1] >= starts2[j]) & (ys[p0:p1] < ends2[j])
+            cc[xs[p0:p1][sel] - starts1[i], ys[p0:p1][sel] - starts2[j]] = \
+                vs[p0:p1][sel]
+            tiles.append(torch.from_numpy(cc).to(dev))
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), len(tiles) * chunk * chunk * 4
+
+
+def tile_peak_bytes(det, src, boxes, chunk):
+    """Peak device bytes above the baseline of one ``det.fn`` on the
+    tiles ``boxes``."""
+    tiles = src.tiles(boxes, chunk)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    det.fn(tiles)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del tiles
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase_inter(dev, workdir):
+    """Phase 9: inter-chromosomal calling and the native .hic decoder."""
+    from mustache_tpu_torch import DetectionConfig
+    from mustache_tpu_torch.config import chunk_grid
+    from mustache_tpu_torch.inter import (
+        OVERLAP, TILE_PLANES, _TileSource, build_inter_detector,
+        detect_inter_loops_coo, normalize_inter,
+    )
     from mustache_tpu_torch.io import native
-    from mustache_tpu_torch.kernels import build, fused_ladder
+    from mustache_tpu_torch.io.hic import HicFile, read_hic_file
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from synthetic import synthetic_hic, synthetic_inter
+
+    rep = {}
+    t_phase = time.perf_counter()
+    (n1, n2), kw = CHR21_X_22
+    x, y, v, anchors = synthetic_inter(n1, n2, **kw)
+    say(f"[9] chr21 x chr22 5 kb: {len(v)} contacts over {n1} x {n2} bins, "
+        f"made in {time.perf_counter() - t_phase:.1f} s")
+    cfg = DetectionConfig(resolution=5000, distance_bp=2_000_000,
+                          pt=INTER_PT, st=INTER_ST)
+    chunk = cfg.chunk_size
+    s1, e1 = chunk_grid(n1, chunk, OVERLAP)
+    s2, e2 = chunk_grid(n2, chunk, OVERLAP)
+
+    # (a) detect_inter_loops_coo with no device: cold, then 3 warm runs,
+    # each on its own copy of v (the call normalizes a float64 v in place)
+    copies = [v.copy() for _ in range(4)]
+    logs = []
+    fl.LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, results = [], []
+    for vc in copies:
+        t0 = time.perf_counter()
+        results.append(detect_inter_loops_coo(x, y, vc, cfg, n1=n1, n2=n2,
+                                              log=logs.append))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = fl.LAUNCHES
+    del copies
+    if launches:
+        fail(f"the inter path launched the fused kernel {launches} times")
+    if "device=cuda" not in logs[0]:
+        fail(f"detect_inter_loops_coo without a device did not run on the "
+             f"card: {logs[0]}")
+    if any(r != results[0] for r in results[1:]):
+        fail("a warm inter rerun gave other rows")
+    rows = inter_tsv_rows(results[0], "chr21", "chr22", 5000)
+    _, golden = read_tsv(GOLDEN_INTER)
+    n_common, q_err, lq_err = compare_inter(rows, golden)
+    plan = logs[0]
+    B = int(plan.split("batch=")[1].split()[0])
+    ntiles = len(s1) * len(s2)
+    h2d = int(plan.split("h2d_bytes=")[1].split()[0])
+    warm = sorted(walls[1:])
+    say(f"[9] {plan}")
+    say(f"[9] detect_inter_loops_coo: {len(rows)} rows, {n_common} equal to "
+        f"the JAX golden ({len(golden)}; q max rel err {q_err:.3g}, log q "
+        f"max abs err {lq_err:.3g}); tiles {ntiles}, B {B}, launches "
+        f"{-(-ntiles // B)}; fused kernel launches 0; wall cold "
+        f"{walls[0]:.3f} s, warm {' '.join(f'{w:.3f}' for w in walls[1:])} "
+        f"s (median {warm[1]:.3f}); peak device memory "
+        f"{peak / 2**30:.2f} GiB; H2D {h2d} B")
+    boundary = anchor_census(results[0], anchors,
+                             [e - OVERLAP // 2 for e in e1[:-1]],
+                             [e - OVERLAP // 2 for e in e2[:-1]])
+    say(f"[9] planted anchors and tile ownership: {boundary}")
+    rep.update(inter_rows=len(rows), inter_q_max_rel_err=q_err,
+               inter_logq_max_abs_err=lq_err, inter_tiles=ntiles,
+               inter_batch=B, inter_launches=-(-ntiles // B),
+               inter_cold_s=walls[0], inter_warm_s=warm[1],
+               inter_peak_gib=peak / 2**30, inter_h2d_bytes=h2d,
+               fused_launches_inter=launches, inter_anchors=boundary)
+
+    # (b) device time by range, from one profiled run
+    names = ("inter.densify", "inter.blur", "inter.scan", "inter.bh",
+             "inter.finish")
+    ranges, busy, top = profile_ranges(
+        lambda: detect_inter_loops_coo(x, y, v.copy(), cfg, n1=n1, n2=n2),
+        names)
+    if ranges is None:
+        say("[9] profiled inter run: not measured (no device time)")
+    else:
+        say(f"[9] profiled inter run: {busy:.2f} ms of kernels; "
+            + ", ".join(f"{k} {val:.2f} ms" for k, val in ranges.items()))
+        for name, kms, calls in top:
+            say(f"[9]   {kms:8.3f} ms {calls:5d}x {name[:90]}")
+    rep.update(inter_profile_ms=ranges, inter_profile_kernel_ms=busy)
+
+    # (c) float64, the judge of both f32 paths (rows by anchor)
+    t0 = time.perf_counter()
+    rows64 = inter_tsv_rows(detect_inter_loops_coo(
+        x, y, v.copy(), cfg.with_(precision="float64"), n1=n1, n2=n2),
+        "chr21", "chr22", 5000)
+    t64 = time.perf_counter() - t0
+    lq64 = {tuple(r[:6]): math.log(float(r[6])) for r in rows64}
+    judge = {}
+    for label, rs in (("port f32", rows), ("JAX f32", golden)):
+        common = [r for r in rs if tuple(r[:6]) in lq64]
+        judge[label] = (len(rs) - len(common), max(
+            abs(math.log(float(r[6])) - lq64[tuple(r[:6])]) for r in common))
+    say(f"[9] float64 judge ({len(rows64)} rows, {t64:.3f} s): log q max abs "
+        "err " + ", ".join(f"{k} {e:.3g} ({n} rows not in the f64 set)"
+                           for k, (n, e) in judge.items()))
+    if any(e > 1e-3 for _, e in judge.values()):
+        fail("an f32 path sits more than 1e-3 from float64 in log q")
+    rep.update(inter_f64_s=t64, inter_f32_vs_f64=judge["port f32"][1],
+               inter_jax_f32_vs_f64=judge["JAX f32"][1])
+
+    # (d) tile build: the device path (one COO upload, x-sort and dedup,
+    # scatter per tile) against the JAX host densify, and the per-tile
+    # peak memory behind the batch rule
+    vc = v.copy()
+    t0 = time.perf_counter()
+    vn = normalize_inter(vc)
+    norm_ms = 1e3 * (time.perf_counter() - t0)
+    boxes = [(s1[i], e1[i], s2[j], e2[j]) for i in range(len(s1))
+             for j in range(len(s2))]
+
+    def device_tiles():
+        src = _TileSource(x, y, vn, n1, n2, np.float32, dev)
+        for b0 in range(0, len(boxes), B):
+            src.tiles(boxes[b0:b0 + B], chunk)
+        torch.cuda.synchronize()
+        return src
+    src = device_tiles()
+    dev_ms = host_ms(device_tiles, reps=3)
+    host_tile_ms, host_bytes = host_densify_ms(x, y, vn, s1, e1, s2, e2,
+                                               chunk, dev)
+    torch.cuda.empty_cache()
+    say(f"[9] host normalize_inter {norm_ms:.1f} ms; tiles: device-built "
+        f"from the COO {dev_ms:.1f} ms ({h2d} B up), host densify as JAX + "
+        f"H2D {host_tile_ms:.1f} ms ({host_bytes} B up)")
+    det = build_inter_detector(cfg, chunk, device=dev)
+    p1 = tile_peak_bytes(det, src, boxes[:1], chunk)
+    p3 = tile_peak_bytes(det, src, boxes[:3], chunk)
+    slope = (p3 - p1) / 2
+    det64 = build_inter_detector(cfg.with_(precision="float64"), chunk,
+                                 device=dev)
+    src64 = _TileSource(x, y, vn, n1, n2, np.float64, dev)
+    q1 = tile_peak_bytes(det64, src64, boxes[:1], chunk)
+    q2 = tile_peak_bytes(det64, src64, boxes[:2], chunk)
+    del src, src64
+    torch.cuda.empty_cache()
+    say(f"[9] per-tile peak (n={chunk}): f32 B=1 {p1 / 1e6:.1f} MB, B=3 "
+        f"{p3 / 1e6:.1f} MB, slope {slope / 1e6:.1f} MB a tile = "
+        f"{slope / (4 * chunk * chunk):.1f} planes; f64 B=1 {q1 / 1e6:.1f} "
+        f"MB, B=2 {q2 / 1e6:.1f} MB, slope {(q2 - q1) / 1e6:.1f} MB = "
+        f"{(q2 - q1) / (8 * chunk * chunk):.1f} planes (rule: "
+        f"{TILE_PLANES} planes)")
+    rep.update(inter_normalize_ms=norm_ms, inter_tiles_device_ms=dev_ms,
+               inter_tiles_host_ms=host_tile_ms,
+               inter_tile_slope_planes=slope / (4 * chunk * chunk),
+               inter_tile_slope_planes_f64=(q2 - q1) / (8 * chunk * chunk))
+    del x, y, v, vn
+
+    # (e) the inter CLI from a .hic: two chromosomes (2000 x 1500 bins of
+    # inter contacts, a small intra map), against the direct call on the
+    # contacts the reader gives
+    xi, yi, vi, _ = synthetic_inter(2000, 1500, seed=2122, n_loops=40)
+    xa, ya, va, _ = synthetic_hic(2000, 60, seed=2123)
+    path = os.path.join(workdir, "inter.hic")
+    t0 = time.perf_counter()
+    write_hic_pairs(path, 2000, 1500, (xa, ya, va), (xi, yi, vi))
+    t_write = time.perf_counter() - t0
+    out = os.path.join(workdir, "inter.tsv")
+    fl.LAUNCHES = 0
+    native.DECODES = 0
+    rc, events, wall = run_cli(["-f", path, "-ch", "c1", "-ch2", "c2", "-r",
+                                "5kb", "-o", out, "-pt", str(INTER_PT),
+                                "-st", str(INTER_ST)])
+    cplan = event(events, "detect_plan")["detail"]
+    if rc != 0 or "device=cuda" not in cplan or fl.LAUNCHES \
+            or native.DECODES <= 0:
+        fail(f"inter CLI: rc {rc}, plan {cplan}, fused launches "
+             f"{fl.LAUNCHES}, native decodes {native.DECODES}")
+    cx, cy, cv = read_hic_file(path, False, False, cfg.distance_bp, "c1",
+                               "c2", 5000)
+    direct = inter_tsv_rows(detect_inter_loops_coo(cx, cy, cv, cfg), "c1",
+                            "c2", 5000)
+    cli_rows = read_tsv(out)[1]
+    if cli_rows != direct or not direct:
+        fail(f"inter CLI rows ({len(cli_rows)}) differ from the direct "
+             f"call's ({len(direct)})")
+    ingest = event(events, "ingest")["seconds"]
+    detect = event(events, "detect")["seconds"]
+    say(f"[9] CLI -ch c1 -ch2 c2 from .hic v8 ({len(vi)} inter contacts, "
+        f"written in {t_write:.1f} s): {cplan}; {len(direct)} rows equal to "
+        f"the direct call's; wall {wall:.3f} s, ingest {ingest:.3f} s, "
+        f"detect {detect:.3f} s")
+    rep.update(inter_cli_wall_s=wall, inter_cli_ingest_s=ingest,
+               inter_cli_detect_s=detect)
+
+    # (f) the native decoder against the Python one, on phase 5's
+    # intra file and this phase's inter rectangle: equal arrays, timed
+    for label, hpath, c1, c2 in (
+            ("phase 5 chr21", os.path.join(workdir, "chr21.hic"), "chr21",
+             "chr21"),
+            ("phase 9 c1 x c2", path, "c1", "c2")):
+        hic = HicFile(hpath)
+        try:
+            blocks = hic._matrix_zoom(hic.chrom_by_name(c1).index,
+                                      hic.chrom_by_name(c2).index, "BP",
+                                      5000).blocks
+            got = hic._decode_blocks(blocks)
+            want = hic._decode_blocks_plain(blocks)
+            if any(a.dtype != b.dtype or not np.array_equal(a, b)
+                   for a, b in zip(got, want)):
+                fail(f"native .hic decode differs from Python's on {label}")
+            nat = host_ms(lambda: hic._decode_blocks(blocks), reps=3)
+            plain = host_ms(lambda: hic._decode_blocks_plain(blocks), reps=3)
+        finally:
+            hic.close()
+        say(f"[9] .hic decode {label} ({len(blocks)} blocks, {len(got[0])} "
+            f"records): native {nat:.1f} ms, Python {plain:.1f} ms, equal "
+            f"arrays")
+        rep[f"decode_{c1}_native_ms"] = nat
+        rep[f"decode_{c1}_python_ms"] = plain
+
+    # the intra .hic ingest (the CLI's reader entry point) with the native
+    # decoder and with the Python one, in turns
+    hpath = os.path.join(workdir, "chr21.hic")
+
+    def ingest_intra():
+        read_hic_file(hpath, False, False, 2_000_000, "chr21", "chr21", 5000)
+    native_s = host_ms(ingest_intra, reps=3) / 1e3
+    with python_decoder():
+        python_s = host_ms(ingest_intra, reps=3) / 1e3
+    say(f"[9] intra .hic ingest (read_hic_file, chr21 5 kb): native decoder "
+        f"{native_s:.3f} s, Python decoder {python_s:.3f} s; phase 9 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    rep.update(ingest_intra_native_s=native_s, ingest_intra_python_s=python_s)
+    return rep
+
+
+@contextlib.contextmanager
+def python_decoder():
+    """``HicFile._decode_blocks`` on its Python twin: the yardstick the
+    native decoder is timed against, never a path of the program."""
+    from mustache_tpu_torch.io.hic import HicFile
+
+    saved = HicFile._decode_blocks
+    HicFile._decode_blocks = HicFile._decode_blocks_plain
+    try:
+        yield
+    finally:
+        HicFile._decode_blocks = saved
+
+
+def write_hic_pairs(path, n1, n2, intra, inter):
+    """Version 8 ``.hic`` of chromosomes c1 (n1 bins, the intra map) and
+    c2 (n2 bins) with their c1 x c2 contacts, KR vectors of ones."""
+    from hic_writer import write_hic
+
+    write_hic(path, [("c1", n1 * 5000), ("c2", n2 * 5000)], 5000,
+              {"c1": intra, ("c1", "c2"): inter}, version=8,
+              norms={("KR", "c1"): np.ones(n1), ("KR", "c2"): np.ones(n2)})
+
+
+def build_all():
+    """Build the fused kernel (nvcc), the native band fill, host normalize
+    and .hic decoder (g++) at the same time (``warmup.warm``), then load
+    them."""
+    from mustache_tpu_torch import warmup
+    from mustache_tpu_torch.io import native
+    from mustache_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        jobs = [pool.submit(build.build, "fused_ladder"),
-                pool.submit(build.build, "band_fill", native.SRC),
-                pool.submit(build.build, "normalize", native.NORM_SRC)]
-        for job in jobs:
-            job.result()
-    build.load("fused_ladder", fused_ladder.bind)
-    native.library()
-    native.normalize_library()
-    say(f"[2] built fused_ladder, band_fill and normalize in "
-        f"{time.perf_counter() - t0:.2f} s "
-        f"({build.library_path('fused_ladder').name}, "
-        f"{build.library_path('band_fill', native.SRC).name}, "
-        f"{build.library_path('normalize', native.NORM_SRC).name}) in "
-        f"{build.build_dir()}")
+    seconds = warmup.warm(torch.device("cuda"))
+    say(f"[2] built {', '.join(sorted(seconds))} in "
+        f"{time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in sorted(seconds.items()))
+        + f") in {build.build_dir()}; the .hic decoder's zlib: "
+        + ("entry points declared by hand (no zlib.h)"
+           if native.hic_zlib_declared() else "zlib.h"))
     for ln in build.build_log("fused_ladder").splitlines():
         if "registers" in ln or "spill" in ln or "entry function" in ln:
             say(f"[2] {ln.strip()}")
@@ -1479,8 +1866,10 @@ def main():
         slice_1kb = phase_1kb(dev)
         diff = phase_diff(dev)
         ladder = phase_ladder_route(dev, workdir)
+        inter = phase_inter(dev, workdir)
     say(json.dumps({"phase5_5kb": files, "phase6_1kb": slice_1kb,
-                    "phase7_diff": diff, "phase8_ladder": ladder}))
+                    "phase7_diff": diff, "phase8_ladder": ladder,
+                    "phase9_inter": inter}))
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
@@ -1522,6 +1911,7 @@ def main():
         "plain_ms_diff_stacked": diff["plain_ms_diff_stacked"],
         "bound_ms_diff_stacked": diff["bound_ms_diff_stacked"],
         "launches_cli_diff": diff["cli_diff_launches"],
+        "launches_inter": inter["fused_launches_inter"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ sits beside the JAX package ``mustache_tpu``, which is its reference, and
 never imports JAX.
 
 It covers intra-chromosomal detection at float32 and float64, single-map
-and differential, with the device, host or no normalize: from COO
-triplets (``detect_loops_coo`` / ``find_loops`` ->
+and differential, with the device, host or no normalize, and
+inter-chromosomal detection (``inter.detect_inter_loops_coo``; the CLI's
+``-ch2``): from COO triplets (``detect_loops_coo`` / ``find_loops`` ->
 ``write_loops``; ``detect_diff_loops_coo`` / ``find_diff_loops`` for two
 conditions) or from contact files through the CLIs (``python -m
 mustache_tpu_torch``, ``mustache-tpu-torch``; ``python -m

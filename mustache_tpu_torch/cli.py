@@ -9,11 +9,14 @@ parser, :963-1111 for the main flow); engine-only extras are prefixed
 asks for the CPU; without CUDA it raises.
 
 ``--engine-precision float64`` runs the float64 route: the host
-normalize and the ladder in float64 (``detect.resolve_route``). Not
-ported yet, and raising ``NotImplementedError`` before any work (ROADMAP
-Queue 1): ``--engine-mesh block|rowshard``, ``--engine-nprocs > 1`` and
-``--engine-coordinator`` (sharding), and a ``-ch2`` that differs from
-``-ch`` (inter-chromosomal).
+normalize and the ladder in float64 (``detect.resolve_route``). A
+``-ch2`` chromosome that differs from its ``-ch`` one is an
+inter-chromosomal unit (``inter.detect_inter_loops_coo``), from ``.hic``,
+``.cool`` or ``.mcool`` input; from text or HiC-Pro input it prints the
+reference's gate message and is recorded as a failed unit, as in the JAX
+CLI. Not ported yet, and raising ``NotImplementedError`` before any work
+(ROADMAP Queue 1): ``--engine-mesh block|rowshard``, ``--engine-nprocs >
+1`` and ``--engine-coordinator`` (sharding).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from mustache_tpu_torch.device import resolve_device
 from mustache_tpu_torch.io.bias import read_bias
 from mustache_tpu_torch.io.chrom import normalize_chrom, read_chrom_sizes
 from mustache_tpu_torch.io.text import read_text_contacts
-from mustache_tpu_torch.pipeline import detect_loops_coo
+from mustache_tpu_torch.inter import detect_inter_loops_coo
+from mustache_tpu_torch.pipeline import Loop, detect_loops_coo
 
 HEADER = ("BIN1_CHR\tBIN1_START\tBIN1_END\tBIN2_CHROMOSOME\t"
           "BIN2_START\tBIN2_END\tFDR\tDETECTION_SCALE\n")
@@ -117,9 +121,12 @@ def build_parser(diff: bool = False) -> argparse.ArgumentParser:
                         ".hic/.cool/.mcool inputs")
     p.add_argument("-ch2", "--chromosome2", dest="chromosome2", nargs="+",
                    default="n",
-                   help="second chromosome list for inter-chromosomal "
-                        "analysis (not ported yet: a list that differs "
-                        "from -ch raises)")
+                   help="second chromosome list, paired with -ch in "
+                        "order: " + ("a pair that differs stops the run "
+                                     "(interchromosomal analysis is not "
+                                     "supported)" if diff else
+                                     "inter-chromosomal analysis where they "
+                                     "differ (.hic/.cool/.mcool input)"))
     p.add_argument("-v", "--verbose", dest="verbose", type=bool, default=True,
                    help="accepted for compatibility (the reference never "
                         "consults it, mustache.py:171-177)")
@@ -148,8 +155,9 @@ def build_parser(diff: bool = False) -> argparse.ArgumentParser:
                         "overlaps the current chromosome's detection).")
     p.add_argument("--engine-warmup", dest="engine_warmup",
                    action="store_true",
-                   help="Build the native band fill and (on the card) the "
-                        "CUDA kernel before ingest starts, so the first "
+                   help="Build the native libraries and (on the card) the "
+                        "CUDA kernel before ingest starts "
+                        "(mustache_tpu_torch.warmup), so the first "
                         "chromosome's time excludes the builds.")
     p.add_argument("--engine-ingest-retries", dest="ingest_retries",
                    type=int, default=2,
@@ -208,9 +216,7 @@ def check_ported(args) -> None:
 
 
 def _chromosome_lists(args, f, res):
-    """Chromosome discovery, mirroring mustache.py:979-1054. A ``-ch2``
-    list that differs from ``-ch`` raises ``NotImplementedError``
-    (inter-chromosomal detection is not ported yet)."""
+    """Chromosome discovery, mirroring mustache.py:979-1054."""
     chrSize_in_bp = False
     chr_list = None
     if not args.chromosome or args.chromosome == "n":
@@ -253,15 +259,18 @@ def _chromosome_lists(args, f, res):
         chr_list2 = list(args.chromosome2)
     else:
         chr_list2 = list(chr_list)
-    inter = [(c, c2) for c, c2 in zip(chr_list, chr_list2) if c != c2]
-    if inter:
-        raise NotImplementedError(
-            f"inter-chromosomal pairs {inter}: not ported yet (ROADMAP "
-            "Queue 1, inter.py)")
 
     if args.chrSize_file and not chrSize_in_bp:
         chrSize_in_bp = read_chrom_sizes(args.chrSize_file)
     return chr_list, chr_list2, chrSize_in_bp
+
+
+def _unit(chromosome, chromosome2) -> str:
+    """A run's unit of restart: the chromosome, or ``c1__x__c2`` for an
+    inter-chromosomal pair (the JAX CLI's naming)."""
+    if chromosome == chromosome2:
+        return str(chromosome)
+    return f"{chromosome}__x__{chromosome2}"
 
 
 def load_contacts(f, norm_method, chrm_size, distance_bp, chromosome,
@@ -294,17 +303,13 @@ def load_contacts(f, norm_method, chrm_size, distance_bp, chromosome,
 
 
 def warm(dev, log) -> None:
-    """Build the native band fill and host normalize and, on the card, the
-    fused kernel (the port's counterpart of the JAX package's AOT warmup:
-    nothing compiles per shape here)."""
-    from mustache_tpu_torch.io import native
+    """Build the native libraries and, on the card, the fused kernel
+    (``warmup.warm``: the port's counterpart of the JAX package's AOT
+    warmup; nothing compiles per shape here)."""
+    from mustache_tpu_torch import warmup
 
     with log.phase("warmup", device=str(dev)):
-        native.library()
-        native.normalize_library()
-        if dev.type == "cuda":
-            from mustache_tpu_torch.kernels import build, fused_ladder
-            build.load("fused_ladder", fused_ladder.bind)
+        warmup.warm(dev)
 
 
 def _profiler(profile_dir: str, dev):
@@ -408,8 +413,8 @@ def main(argv=None):
                           attempt=attempt + 1, error=str(exc))
                 time.sleep(0.1 * (2 ** attempt))
 
-    todo = [(c, c2) for c, c2 in zip(chr_list, chr_list2)
-            if not (manifest and str(c) in done)]
+    todo = [(c, c2, _unit(c, c2)) for c, c2 in zip(chr_list, chr_list2)
+            if not (manifest and _unit(c, c2) in done)]
 
     if args.engine_warmup:
         warm(dev, log)
@@ -425,8 +430,28 @@ def main(argv=None):
     pending = None
     failed_units: list[str] = []
 
-    for i, (chromosome, chromosome2) in enumerate(todo):
-        unit_name = str(chromosome)
+    for i, (chromosome, chromosome2, unit_name) in enumerate(todo):
+        inter = chromosome != chromosome2
+        if inter and not f.endswith((".hic", ".cool", ".mcool")):
+            # reference gate (mustache.py:869-871), recorded as a failed
+            # unit as the JAX CLI does; the pending prefetch (THIS unit's
+            # ingest) is discarded and the next unit's submitted, or unit
+            # i+1 would consume unit i's contacts
+            print("Interchromosomal analysis is only supported for .hic "
+                  "and .cool input formats.")
+            log.event("unit_failed", unit=unit_name, stage="gate",
+                      error="inter-chromosomal needs .hic/.cool input")
+            failed_units.append(unit_name)
+            if pending is not None:
+                try:
+                    pending.result()
+                except Exception:
+                    pass
+            pending = None
+            if prefetch is not None and i + 1 < len(todo):
+                pending = prefetch.submit(ingest_one, *todo[i + 1][:2])
+            continue
+
         ingest_err = None
         with log.phase("ingest", chromosome=str(chromosome),
                        prefetched=pending is not None):
@@ -439,7 +464,7 @@ def main(argv=None):
                 ingest_err = exc
         pending = None
         if prefetch is not None and i + 1 < len(todo):
-            pending = prefetch.submit(ingest_one, *todo[i + 1])
+            pending = prefetch.submit(ingest_one, *todo[i + 1][:2])
         if ingest_err is not None:
             # elastic recovery: the chromosome is the unit of restart —
             # record the failure, keep the run alive, let a later
@@ -460,6 +485,15 @@ def main(argv=None):
                            contacts=len(v)):
                 if not len(v):
                     loops = []
+                elif inter:
+                    # beyond the reference: working inter-chromosomal
+                    # detection (its path crashes, mustache.py:689-694)
+                    rows_i = detect_inter_loops_coo(
+                        x, y, v, cfg, device=dev,
+                        log=lambda m, c=unit_name: log.event(
+                            "detect_plan", chromosome=c, detail=m))
+                    loops = [Loop(int(r[0]), int(r[1]), float(r[2]),
+                                  float(r[3])) for r in rows_i]
                 else:
                     loops = detect_loops_coo(
                         x, y, v, cfg, device=dev,
@@ -494,7 +528,7 @@ def main(argv=None):
     if prefetch is not None:
         prefetch.shutdown(wait=False)
     if manifest:
-        unit_order = [str(c) for c in chr_list]
+        unit_order = [_unit(c, c2) for c, c2 in zip(chr_list, chr_list2)]
         manifest.assemble(unit_order, HEADER)
         if not failed_units:
             # fully-successful run: the parts served their purpose;

@@ -94,23 +94,27 @@ class _BandGeom:
 
 
 def _suffix_cummin(a: torch.Tensor) -> torch.Tensor:
-    """Reverse cummin over a flat vector (exact: min is associative)."""
-    return torch.flip(torch.cummin(torch.flip(a, (0,)), 0).values, (0,))
+    """Reverse cummin along the last dim (exact: min is associative)."""
+    return torch.flip(torch.cummin(torch.flip(a, (-1,)), -1).values, (-1,))
 
 
 def _logq_from_sorted(sp: torch.Tensor, n_tested: torch.Tensor):
-    """BH log q for ascending-sorted log p (statsmodels fdr_bh:
-    q_(i) = cummin_{j>=i} p_(j) * n / j, clipped at 1 = log 0)."""
-    ranks = torch.arange(1, sp.shape[0] + 1, device=sp.device).to(sp.dtype)
+    """BH log q for log p sorted ascending along the last dim (statsmodels
+    fdr_bh: q_(i) = cummin_{j>=i} p_(j) * n / j, clipped at 1 = log 0);
+    ``n_tested`` broadcasts against ``sp`` (a scalar for one vector,
+    ``[B, 1]`` for a batch of rows)."""
+    ranks = torch.arange(1, sp.shape[-1] + 1, device=sp.device).to(sp.dtype)
     q = sp + torch.log(n_tested.to(sp.dtype)) - torch.log(ranks)
     return torch.clamp(_suffix_cummin(q), max=0.0)
 
 
 def _bh_lookup(sp, qs, vals):
     """q-value lookup by log-p value: BH gives equal q to equal p (the
-    suffix cummin flattens rank ties), so a value search is exact."""
-    pos = torch.searchsorted(sp, vals).clamp(0, sp.shape[0] - 1)
-    return qs[pos]
+    suffix cummin flattens rank ties), so a value search is exact. For a
+    batch of rows ``sp``, ``qs`` ``[B, M]``, ``vals`` is ``[B, ...]``."""
+    flat = vals.reshape(*sp.shape[:-1], -1)
+    pos = torch.searchsorted(sp, flat).clamp(0, sp.shape[-1] - 1)
+    return qs.gather(-1, pos).reshape(vals.shape)
 
 
 def _box_counts_band(cs_flat, x, y, s, smax: int, N: int, Dl: int):

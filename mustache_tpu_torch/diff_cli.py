@@ -12,10 +12,13 @@ prefetch are the single-map CLI's. The run goes on the card unless
 ``--engine-platform cpu`` asks for the CPU; without CUDA it raises.
 
 ``--engine-precision float64`` runs the float64 route (host normalize,
-the ladder in float64), as in the single-map CLI. Not ported yet, and
-raising ``NotImplementedError`` before any work (ROADMAP Queue 1):
-``--engine-mesh block|rowshard``, ``--engine-nprocs > 1``,
-``--engine-coordinator`` and a ``-ch2`` that differs from ``-ch``.
+the ladder in float64), as in the single-map CLI. A ``-ch2`` chromosome
+that differs from its ``-ch`` one stops the run with the JAX CLI's
+"Interchromosomal analysis is not supported." and exit code 1
+(``mustache_tpu/diff_cli.py:173-175``). Not ported yet, and raising
+``NotImplementedError`` before any work (ROADMAP Queue 1):
+``--engine-mesh block|rowshard``, ``--engine-nprocs > 1`` and
+``--engine-coordinator``.
 """
 
 from __future__ import annotations
@@ -153,6 +156,13 @@ def main(argv=None):
     failed_units: list[str] = []
     wrote_header = False
     for i, (chromosome, chromosome2) in enumerate(pairs):
+        if chromosome != chromosome2:
+            print("Interchromosomal analysis is not supported.")
+            if prefetch is not None:
+                prefetch.shutdown(wait=False)
+            if prof is not None:
+                prof.stop()
+            return 1
         unit_name = str(chromosome)
         ingest_err = None
         with log.phase("ingest", chromosome=unit_name,

@@ -1,13 +1,14 @@
-"""Native Juicer ``.hic`` reader (pure Python struct + zlib; no hicstraw).
+"""Native Juicer ``.hic`` reader (no hicstraw).
 
 Torch port of ``mustache_tpu/io/hic.py`` (the JAX package's reader of the
 public .hic format, versions 6-9: header, footer index, zoom data, block
-index, block cull, norm vectors). Blocks decode with Python's ``zlib``,
-the JAX reader's own path when its native decoder is absent
-(``mustache_tpu/io/hic.py:364-380``); each row of a row-list block and
-each dense block is read with one ``np.frombuffer`` instead of one
-``struct`` call per record. The C++ block decoder is not ported yet
-(ROADMAP).
+index, block cull, norm vectors). The header, index and norm vectors are
+read in Python; the blocks decode in one native pass
+(``io/native/hic_decode.cpp``, a copy of the JAX package's decoder, built
+at first use; a failed build raises). The Python decoder
+(:meth:`HicFile._decode_blocks_plain`: ``zlib`` and one ``np.frombuffer``
+per row-list row or dense block) is its plain twin, which the tests hold
+it to.
 
 The reader loads a whole chromosome's diagonal band at once (the
 reference's overlapping-window walk via ``hicstraw.straw`` plus Python set
@@ -361,7 +362,20 @@ class HicFile:
         raise ValueError(f"unknown .hic block matrix type {mtype}")
 
     def _decode_blocks(self, blocks):
-        """Decode a block list into concatenated (binX, binY, counts)."""
+        """Decode a block list into concatenated (binX, binY, counts) with
+        the native decoder, in block and record order."""
+        if not blocks:
+            return (np.array([], np.int64), np.array([], np.int64),
+                    np.array([], np.float64))
+        from mustache_tpu_torch.io import native
+
+        return native.decode_hic_blocks(
+            self.path, np.array([b.position for b in blocks], np.int64),
+            np.array([b.size for b in blocks], np.int32), self.version)
+
+    def _decode_blocks_plain(self, blocks):
+        """:meth:`_decode_blocks` in Python (``zlib`` and numpy): the
+        native decoder's plain twin."""
         empty = (np.array([], np.int64), np.array([], np.int64),
                  np.array([], np.float64))
         xs, ys, vs = [], [], []

@@ -1,13 +1,13 @@
-"""ctypes bindings for the native host band fill and host normalize, and
-the band fill's numpy twins.
+"""ctypes bindings for the native host band fill, host normalize and
+``.hic`` block decoder, and the band fill's numpy twins.
 
-Torch port of the band and normalize halves of
-``mustache_tpu/io/native/__init__.py`` (bindings at :65-70, :221-247 and
-:250-424). ``band_fill.cpp`` and ``normalize.cpp`` (copies of the JAX
-package's functions) are compiled with g++ at first use into the port's
+Torch port of ``mustache_tpu/io/native/__init__.py`` (bindings at :50-70,
+:189-218, :221-247 and :250-424). ``band_fill.cpp``, ``normalize.cpp``
+and ``hic_decode.cpp`` (copies of the JAX package's functions; the
+decoder links zlib) are compiled with g++ at first use into the port's
 build cache (``kernels/build.py``, keyed by a hash of the source); a
-failed build raises, and nothing here falls back to numpy (``available``
-only says whether a compiler is found). Argument dtypes and
+failed build raises, and nothing here falls back to numpy or Python's
+``zlib`` (``available`` only says whether a compiler is found). Argument dtypes and
 contiguity are checked in Python before any pointer is passed; a wrong
 one raises ``TypeError``.
 
@@ -17,8 +17,10 @@ beside its native calls (``mustache_tpu/pipeline.py:67-76,109-112,
 pipeline calls only :func:`fill_band_plain`, for the float64 band the
 native fill (float32 only) does not write.
 
-``FILLS`` counts the native fill calls (plain integer), so a run can show
-that its band went up through the native fill.
+``FILLS`` counts the native fill calls and ``DECODES`` the native
+``.hic`` decoder calls (plain integers), so a run can show that its band
+went up through the native fill and its ``.hic`` blocks through the
+native decoder.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ import numpy as np
 
 SRC = Path(__file__).resolve().parent / "band_fill.cpp"
 NORM_SRC = Path(__file__).resolve().parent / "normalize.cpp"
+HIC_SRC = Path(__file__).resolve().parent / "hic_decode.cpp"
 N_THREADS = 8
 FILLS = 0
+DECODES = 0
 
 _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -87,6 +91,63 @@ def normalize_library():
     from mustache_tpu_torch.kernels import build
 
     return build.load("normalize", bind_normalize, src=NORM_SRC)
+
+
+def bind_hic(lib) -> None:
+    """ctypes signatures of the ``.hic`` decoder (as the JAX binding)."""
+    lib.mtpu_decode_hic_blocks.restype = ctypes.c_int
+    lib.mtpu_decode_hic_blocks.argtypes = [
+        ctypes.c_char_p, _I64, _I32, _i32, _i32, _I64, _I64, _F64, _i64,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.mtpu_hic_zlib_declared.restype = ctypes.c_int
+    lib.mtpu_hic_zlib_declared.argtypes = []
+
+
+def hic_library():
+    """The ``.hic`` block decoder library, built at first use (raises on
+    failure)."""
+    from mustache_tpu_torch.kernels import build
+
+    return build.load("hic_decode", bind_hic, src=HIC_SRC)
+
+
+def hic_zlib_declared() -> bool:
+    """True when the decoder was compiled without zlib.h, its inflate entry
+    points declared by hand against libz.so.1."""
+    return bool(hic_library().mtpu_hic_zlib_declared())
+
+
+def decode_hic_blocks(path: str, positions, sizes, version: int):
+    """Decode the ``.hic`` blocks at ``positions`` (int64 file offsets) of
+    ``sizes`` (int32 compressed bytes) in one native pass: ``(x, y, v)``
+    as int64, int64, float64, in block and record order. Retries once
+    per shortfall with the capacity the decoder reports (rc -4); raises
+    ``IOError`` on an I/O, inflate or parse error."""
+    global DECODES
+    lib = hic_library()
+    positions = np.ascontiguousarray(positions, np.int64)
+    sizes = np.ascontiguousarray(sizes, np.int32)
+    if positions.shape != sizes.shape or positions.ndim != 1:
+        raise ValueError(f"positions {positions.shape} and sizes "
+                         f"{sizes.shape} must be equal 1-D shapes")
+    DECODES += 1
+    capacity = max(int(sizes.sum()) * 2, 1 << 16)
+    for _ in range(4):
+        x = np.empty(capacity, np.int64)
+        y = np.empty(capacity, np.int64)
+        v = np.empty(capacity, np.float64)
+        count = ctypes.c_int64(0)
+        rc = lib.mtpu_decode_hic_blocks(
+            str(path).encode(), positions, sizes, len(sizes), int(version),
+            x, y, v, capacity, ctypes.byref(count))
+        if rc == 0:
+            n = count.value
+            return x[:n], y[:n], v[:n]
+        if rc == -4:
+            capacity = int(count.value * 1.2) + 1024
+            continue
+        raise IOError(f"native .hic decode failed (rc={rc}) for {path}")
+    raise IOError(f"native .hic decode: capacity retry exhausted for {path}")
 
 
 def available() -> bool:

@@ -2,8 +2,9 @@
 
 Each CUDA source ``csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` into ``lib<name>_<hash>.so`` in the build cache
-(:func:`build_dir`); a C++ host source (the band fill and normalize of
-``io/native``) is compiled the same way by ``g++``. The hash covers the
+(:func:`build_dir`); a C++ host source (the band fill, normalize and
+``.hic`` block decoder of ``io/native``) is compiled the same way by
+``g++``. The hash covers the
 source and the flags, so an edited source rebuilds and a stale library
 is never loaded; nothing depends on the
 host it was built on (no ``-march=native``). Libraries are loaded with
@@ -31,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 GXX_LIBS = ("-lpthread",)
+# libraries one source links beside GXX_LIBS: the .hic decoder's zlib, by
+# its runtime name (no development symlink needed)
+SOURCE_LIBS = {"hic_decode.cpp": ("-l:libz.so.1",)}
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -89,14 +93,18 @@ def _source(name: str, src: Path | None) -> Path:
     return src if src is not None else CSRC / f"{name}.cu"
 
 
+def _libs(src: Path) -> tuple[str, ...]:
+    return GXX_LIBS + SOURCE_LIBS.get(src.name, ())
+
+
 def _command(src: Path, out: str) -> list[str]:
     if src.suffix == ".cu":
         return [nvcc(), *NVCC_FLAGS, "-o", out, str(src)]
-    return [gxx(), *GXX_FLAGS, "-o", out, str(src), *GXX_LIBS]
+    return [gxx(), *GXX_FLAGS, "-o", out, str(src), *_libs(src)]
 
 
 def _flags(src: Path) -> tuple[str, ...]:
-    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS + GXX_LIBS
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS + _libs(src)
 
 
 def library_path(name: str, src: Path | None = None) -> Path:

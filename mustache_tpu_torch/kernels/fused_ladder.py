@@ -189,13 +189,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _symmetric_pad(c: torch.Tensor, R: int) -> torch.Tensor:
     """numpy 'symmetric' (= scipy 'reflect': the edge sample repeats) pad
-    of the last two dims by R. torch's F.pad 'reflect' omits the edge
-    sample, so this indexes instead."""
-    N = c.shape[-1]
-    idx = torch.arange(-R, N + R, device=c.device)
-    idx = torch.where(idx < 0, -1 - idx, idx)
-    idx = torch.where(idx >= N, 2 * N - 1 - idx, idx)
-    return c[..., idx, :][..., idx]
+    of the last two dims by R (square or rectangular). torch's F.pad
+    'reflect' omits the edge sample, so this indexes instead."""
+    def index(N):
+        idx = torch.arange(-R, N + R, device=c.device)
+        idx = torch.where(idx < 0, -1 - idx, idx)
+        return torch.where(idx >= N, 2 * N - 1 - idx, idx)
+    return c[..., index(c.shape[-2]), :][..., index(c.shape[-1])]
 
 
 def _max3x3(x: torch.Tensor) -> torch.Tensor:

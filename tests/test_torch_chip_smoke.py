@@ -299,3 +299,69 @@ def test_phase8_helpers():
     assert (D.resolve_route, fl.fused_ladder_nms_batched) == saved
     want = fl.fused_ladder_nms_reference(cs, nzf, taps, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_inter_golden_comparison():
+    """Phase 9's rule: rows in order with anchors and scales exact, q
+    within rtol 2e-4; a row on one side only passes only at pt."""
+    header, golden = chip_smoke.read_tsv(chip_smoke.GOLDEN_INTER)
+    assert header.startswith("BIN1_CHR") and len(golden) == 280
+    assert {(r[0], r[3]) for r in golden} == {("chr21", "chr22")}
+    assert chip_smoke.compare_inter(golden, golden) == (280, 0.0, 0.0)
+
+    def scaled(rows, i, f):
+        out = [list(r) for r in rows]
+        out[i][6] = repr(float(out[i][6]) * f)
+        return out
+    n, q_err, lq_err = chip_smoke.compare_inter(
+        scaled(golden, 7, 1 + 1.5e-4), golden)
+    assert n == 280 and 1.4e-4 < q_err < 1.6e-4 and lq_err > 0
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_inter(scaled(golden, 7, 1 + 2.5e-4), golden)
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_inter(golden[1:], golden)
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_inter([golden[1], golden[0]] + golden[2:], golden)
+    moved = [list(r) for r in golden]
+    moved[3][7] = "9.9"
+    with pytest.raises(SystemExit):
+        chip_smoke.compare_inter(moved, golden)
+    at_pt = [list(golden[0])]
+    at_pt[0][1] = "0"
+    at_pt[0][6] = repr(chip_smoke.INTER_PT * (1 - 1e-5))
+    assert chip_smoke.compare_inter(golden + at_pt, golden)[0] == 280
+
+
+def test_inter_rows_and_pair_file(tmp_path):
+    """Phase 9's TSV fields match the CLI's, and its two-chromosome .hic
+    reads back through the port's reader (inter rectangle and intra
+    map)."""
+    from mustache_tpu_torch.io.hic import read_hic_file
+    from mustache_tpu_torch.pipeline import Loop
+    from synthetic import synthetic_hic, synthetic_inter
+
+    rows = [[3, 7, 1.5e-20, 2.111212657236631], [10, 2, 0.04, 1.6]]
+    want = [Loop(*r).to_row("c1", "c2", 5000).rstrip("\n").split("\t")
+            for r in rows]
+    assert chip_smoke.inter_tsv_rows(rows, "c1", "c2", 5000) == want
+
+    xi, yi, vi, _ = synthetic_inter(120, 90, seed=3, n_loops=2)
+    xa, ya, va, _ = synthetic_hic(120, 20, seed=4)
+    path = str(tmp_path / "pair.hic")
+    chip_smoke.write_hic_pairs(path, 120, 90, (xa, ya, va), (xi, yi, vi))
+    X, Y, V = read_hic_file(path, False, False, 2_000_000, "c1", "c2", 5000)
+    got = sorted(zip(X.tolist(), Y.tolist(), V.tolist()))
+    assert got == sorted(zip(xi.tolist(), yi.tolist(),
+                             vi.astype(np.float32).astype(float).tolist()))
+    X, _, _ = read_hic_file(path, False, False, 2_000_000, "c1", "c1", 5000)
+    assert len(X) > 0
+
+
+def test_anchor_census():
+    rows = [[10, 10, 1e-20, 2.0], [52, 48, 1e-19, 2.0], [54, 49, 1e-19, 2.0],
+            [300, 300, 1e-20, 2.0]]
+    anchors = [(11, 9), (50, 50), (127, 200), (400, 10)]
+    got = chip_smoke.anchor_census(rows, anchors, [128], [500])
+    assert got == {"anchors": 4, "recovered": 2, "missed": 2,
+                   "missed_at_a_cut": 1, "rows_near_no_anchor": 2,
+                   "row_pairs_within_3": 1}

@@ -198,11 +198,27 @@ def test_profile_dir_writes_a_trace(two_chroms, tmp_path):
     (["--engine-coordinator", "localhost:1234"], "sharding"),
     (["-ch2", "20"], "inter"),
 ])
-def test_unported_modes_raise(two_chroms, tmp_path, extra, match):
+def test_unported_modes_raise(two_chroms, tmp_path, capsys, extra, match):
+    """The sharding modes raise ``NotImplementedError`` before any work.
+    The inter case (``-ch2`` != ``-ch``) is ported: from a text file it
+    prints the reference's gate message and records the pair as a failed
+    unit at stage "gate" (exit 1, header-only TSV), as the JAX CLI does."""
     out = tmp_path / "o.tsv"
+    argv = ["-f", two_chroms, "-ch", "21", "-o", str(out)] + FLAGS + CPU \
+        + extra
+    if match == "inter":
+        assert main(argv + ["--engine-json-log"]) == 1
+        cap = capsys.readouterr()
+        assert ("Interchromosomal analysis is only supported for .hic and "
+                ".cool input formats.") in cap.out
+        failed = [json.loads(ln) for ln in cap.err.splitlines()
+                  if ln.startswith("{") and '"unit_failed"' in ln]
+        assert [(e["unit"], e["stage"]) for e in failed] == \
+            [("21__x__20", "gate")]
+        assert _rows(out) == []
+        return
     with pytest.raises(NotImplementedError, match=match):
-        main(["-f", two_chroms, "-ch", "21", "-o", str(out)] + FLAGS + CPU
-             + extra)
+        main(argv)
     assert not out.exists()
 
 

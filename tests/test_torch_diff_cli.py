@@ -184,11 +184,21 @@ def test_diff_cli_bad_resolution(text_runs, tmp_path, capsys):
     (["--engine-coordinator", "localhost:1234"], "sharding"),
     (["-ch2", "20"], "inter"),
 ])
-def test_unported_modes_raise(text_runs, tmp_path, extra, match):
+def test_unported_modes_raise(text_runs, tmp_path, capsys, extra, match):
+    """The sharding modes raise ``NotImplementedError`` before any work.
+    The inter case (``-ch2`` != ``-ch``) stops the run as the JAX diff CLI
+    does (``mustache_tpu/diff_cli.py:173-175``): its message, exit 1, no
+    output file."""
     out = tmp_path / "o"
-    with pytest.raises(NotImplementedError, match=match):
-        main(["-f1", text_runs["paths"][0], "-f2", text_runs["paths"][1],
-              "-ch", "21", "-o", str(out)] + FLAGS + CPU + extra)
+    argv = ["-f1", text_runs["paths"][0], "-f2", text_runs["paths"][1],
+            "-ch", "21", "-o", str(out)] + FLAGS + CPU + extra
+    if match == "inter":
+        assert main(argv) == 1
+        assert "Interchromosomal analysis is not supported." in \
+            capsys.readouterr().out
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            main(argv)
     assert not [p for p in os.listdir(tmp_path)]
 
 

@@ -1,8 +1,9 @@
 """The port never imports JAX, the JAX package, pandas or h5py: checked in
 a fresh interpreter (this test process has JAX loaded already through
 conftest.py) that imports every module of the port and runs detection
-(float32 and float64), the CLI on the CPU from a text file and from a
-.hic file at float64, and the differential CLI on two text files. h5py
+(float32 and float64), inter-chromosomal detection, the warmup's builds,
+the CLI on the CPU from a text file and from a .hic file at float64, and
+the differential CLI on two text files. h5py
 may load only inside the .cool reader's call, which this script does not
 make."""
 
@@ -19,8 +20,9 @@ import numpy as np
 import mustache_tpu_torch as mt
 import mustache_tpu_torch.__main__  # noqa: F401
 from mustache_tpu_torch import (bandnorm, cli, config, detect, device,  # noqa: F401
-                                diff, diff_cli, faults, ladder, manifest,
-                                normalize, pipeline, runlog, scalespace)
+                                diff, diff_cli, faults, inter, ladder,
+                                manifest, normalize, pipeline, runlog,
+                                scalespace, warmup)
 from mustache_tpu_torch.io import bias, chrom, cool, hic, hicpro, native, text  # noqa: F401
 from mustache_tpu_torch.kernels import build, fused_ladder  # noqa: F401
 from synthetic import synthetic_hic
@@ -30,6 +32,12 @@ cfg = mt.DetectionConfig(resolution=5000, distance_bp=300_000, pt=0.1, st=0.8)
 loops = mt.detect_loops_coo(x, y, v, cfg, device="cpu")
 f64 = mt.detect_loops_coo(x, y, v, cfg.with_(precision="float64"),
                           device="cpu")
+from synthetic import synthetic_inter
+xi, yi, vi, _ = synthetic_inter(300, 200, seed=5, n_loops=4)
+inter_rows = inter.detect_inter_loops_coo(xi, yi, vi, cfg.with_(st=0.5,
+                                          min_tested=5000), chunk=512,
+                                          device="cpu")
+warmup.warm(device.resolve_device("cpu"))
 tmp = tempfile.mkdtemp()
 txt, h = os.path.join(tmp, "c.txt"), os.path.join(tmp, "c.hic")
 with open(txt, "w") as fh:
@@ -51,7 +59,7 @@ rcs.append(diff_cli.main(["-f1", txt, "-f2", txt2, "-ch", "1", "-r", "5kb",
                           "--engine-platform", "cpu"]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mustache_tpu", "pandas", "h5py"))
-print("LOOPS", len(loops), len(f64))
+print("LOOPS", len(loops), len(f64), len(inter_rows))
 print("RCS", rcs)
 print("BAD_MODULES", bad)
 """
@@ -67,4 +75,4 @@ def test_port_imports_and_runs_without_jax():
     assert "BAD_MODULES []" in out, res.stdout
     assert "RCS [0, 0, 0]" in out, res.stdout
     counts = next(l for l in out if l.startswith("LOOPS")).split()[1:]
-    assert int(counts[0]) > 0 and int(counts[1]) > 0
+    assert int(counts[0]) > 0 and int(counts[1]) > 0 and int(counts[2]) > 0

@@ -29,6 +29,12 @@ modes) and writes the reference-format TSV:
   ``exact_normalize=True`` (the host normalize in the reference's
   summation order, then the float32 XLA path; sort-mode BH), to
   ``tests/data/torch_port_chr21_5kb_exact_golden.tsv``;
+* ``inter_5kb``: a whole chromosome pair at 5 kb, chr21 x chr22
+  (``synthetic_inter(9342, 10164, seed=2121, n_loops=300)``, density
+  0.5: 46,709,983 and 50,818,468 bp, about 47 M contacts) through the
+  JAX ``inter.detect_inter_loops_coo`` at ``pt=0.1, st=0.5``, default
+  sigma0 and octaves, 2 Mb (tiles of 2000^2, a 5 x 6 grid), to
+  ``tests/data/torch_port_inter_5kb_golden.tsv``;
 * ``cpu_f64``: the small float64 cases of ``tests/torch_port_cases.py``
   (pipelines, differential calls and both CLIs, sort-mode BH), to
   ``tests/data/torch_port_cpu_f64_golden.json``.
@@ -64,6 +70,8 @@ SLICES = {
     "exact_5kb": ((9629, 400), dict(seed=2021, n_loops=300,
                                     loop_strength=3.0),
                   5000, "chr21", "sort"),
+    "inter_5kb": ((9342, 10164), dict(seed=2121, n_loops=300), 5000,
+                  ("chr21", "chr22"), None),
     "cpu_f64": (None, None, 5000, None, "sort"),
 }
 DIFF_SEED2 = 2022      # the diff leg's second condition (bench.py)
@@ -79,6 +87,8 @@ OUT = {"5kb": os.path.join(ROOT, "tests", "data",
                                     "torch_port_chr21_5kb_diff_f64_golden.tsv"),
        "exact_5kb": os.path.join(ROOT, "tests", "data",
                                  "torch_port_chr21_5kb_exact_golden.tsv"),
+       "inter_5kb": os.path.join(ROOT, "tests", "data",
+                                 "torch_port_inter_5kb_golden.tsv"),
        "cpu_f64": os.path.join(ROOT, "tests", "data",
                                "torch_port_cpu_f64_golden.json")}
 DIFF_HEADER = ("BIN1_CHR\tBIN1_START\tBIN1_END\tBIN2_CHROMOSOME\t"
@@ -188,6 +198,21 @@ def main():
         cpu_f64_golden(out)
         print(f"-> {out} ({time.time() - t0:.1f} s, jax {jax.__version__} "
               f"on {jax.default_backend()}, BH {jdetect._BH_MODE})")
+        return
+    if args.slice == "inter_5kb":
+        from mustache_tpu.inter import detect_inter_loops_coo
+        from mustache_tpu.pipeline import Loop
+        from synthetic import synthetic_inter
+
+        x, y, v, _ = synthetic_inter(*shape, **kw)
+        cfg = DetectionConfig(resolution=res, distance_bp=2_000_000, pt=0.1,
+                              st=0.5)
+        rows = detect_inter_loops_coo(x, y, v, cfg, n1=shape[0], n2=shape[1])
+        loops = [Loop(int(r[0]), int(r[1]), float(r[2]), float(r[3]))
+                 for r in rows]
+        write_loops(out, [(*chrom, cfg.resolution, loops)])
+        print(f"{len(loops)} rows -> {out} ({time.time() - t0:.1f} s, "
+              f"jax {jax.__version__} on {jax.default_backend()})")
         return
     x, y, v, _ = synthetic_hic(*shape, **kw)
     cfg = DetectionConfig(
