@@ -96,7 +96,24 @@ Phases, in order; any failure exits non-zero:
    ``-ch c1 -ch2 c2`` from a v8 ``.hic`` (2000 x 1500 bins) against the
    direct call on the same contacts; and the native decoder against the
    Python one on phase 5's and this phase's files (equal arrays, both
-   timed), reporting whether zlib.h was found.
+   timed), reporting whether zlib.h was found;
+10. sharding (``sharding.py``, ``dryrun.py``): ``dryrun_multichip`` on
+   every card and on a mesh of four entries of ``cuda:0`` (production
+   geometry included); chr21 at 5 kb through the replicate and row-shard
+   placements on meshes of one and four entries of ``cuda:0``: replicate
+   rows identical to phase 4's, row-shard rows held under phase 4's rule
+   to the JAX row-sharded golden
+   (tests/data/torch_port_chr21_5kb_rowshard_golden.tsv,
+   ``tools/make_torch_golden.py --slice rowshard_5kb``), with their q
+   distance from phase 4's rows, the slab and replicated bytes, the fused
+   launches per entry and the warm walls against phase 4's; phase 7's
+   workload on four entries (replicate: phase 7's rows; row-shard: tags,
+   anchors and scales exact, q within rtol 5e-3); and the CLI on a v8
+   ``.hic`` of three 5 kb chromosomes (phase 5's map at seeds 2021-2023)
+   as two processes on the first card over gloo (``--engine-nprocs 2``):
+   the TSV byte-equal to the single-process run's, and with one
+   chromosome's ingest failing, exit codes [0, 1] and the other two in
+   the TSV.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -529,7 +546,7 @@ def phase_end_to_end():
         f"launches {launches}; wall cold {cold:.3f} s, warm "
         f"{' '.join(f'{w:.3f}' for w in warm)} s (median "
         f"{sorted(warm)[1]:.3f})")
-    return launches
+    return launches, loops, sorted(warm)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -1022,6 +1039,7 @@ def phase_diff(dev):
         _diff_bands, build_diff_detector, diff_p_band, diff_planes,
     )
     from mustache_tpu_torch.diff_cli import SUFFIXES, main as diff_main
+    from mustache_tpu_torch.pipeline import local_runner
     from mustache_tpu_torch.kernels import fused_ladder as fl
 
     t_phase = time.perf_counter()
@@ -1032,7 +1050,8 @@ def phase_diff(dev):
                           st=ST, pt2=PT2)
     d_px, N = cfg.distance_px, cfg.chunk_size
     DB = band_width(N, d_px)
-    (band1, band2), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg, dev)
+    ((band1,), (band2,)), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg,
+                                             local_runner(dev))
     det = build_diff_detector(cfg, N, device=dev)
     spec = det.spec
     start, _ = chunk_grid(n, N, d_px)
@@ -1163,7 +1182,7 @@ def phase_diff(dev):
                 diff_profile_ms=ranges, diff_profile_kernel_ms=busy,
                 diff_rows=len(got), cli_diff_wall_s=wall,
                 cli_diff_ingest_s=ingest, cli_diff_detect_s=detect,
-                cli_diff_launches=cli_launches)
+                cli_diff_launches=cli_launches), rows
 
 
 # ---------------------------------------------------------------------------
@@ -1797,6 +1816,233 @@ def phase_inter(dev, workdir):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+GOLDEN_ROWSHARD = os.path.join(ROOT, "tests", "data",
+                               "torch_port_chr21_5kb_rowshard_golden.tsv")
+RTOL_ROWSHARD = 5e-3  # the JAX dryrun's rowshard q rtol (host vs device
+                      # normalize)
+# phase 10's CLI file: three 5 kb chromosomes, phase 5's chr21 map at
+# seeds 2021-2023
+CLI3 = [(f"c{i}", ((9629, 400), dict(seed=2021 + i, n_loops=300,
+                                     loop_strength=3.0))) for i in range(3)]
+PROC_TIMEOUT = 300    # seconds a CLI process of phase 10 may take
+
+
+def q_distance(got, base, key, q):
+    """Rows in the same order with the same ``key`` (else a failure); the
+    largest relative distance of their q."""
+    if [key(r) for r in got] != [key(r) for r in base]:
+        fail(f"{len(got)} rows differ from the {len(base)} unsharded rows "
+             f"in anchors, scales or tags")
+    if not base:
+        return 0.0
+    return max(abs(q(a) - q(b)) / q(b) for a, b in zip(got, base))
+
+
+def mesh_run(fn, runner):
+    """``fn()`` once cold with the kernel's and the runner's launch counts
+    set to 0 just before (read just after), then twice warm (the same
+    rows): ``(rows, launches per entry, kernel launches, cold wall, warm
+    median wall)``."""
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+
+    fl.LAUNCHES = 0
+    runner.launches = [0] * runner.nb
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = fn()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    per_entry, launches = list(runner.launches), fl.LAUNCHES
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = fn()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        if again != rows:
+            fail("a warm sharded rerun gave other rows")
+    if launches <= 0 or sum(per_entry) != launches:
+        fail(f"sharded run: kernel launches {launches}, per entry "
+             f"{per_entry}")
+    return rows, per_entry, launches, cold, min(warm)
+
+
+def two_process_cli(hic, out, extra_env=None):
+    """The CLI from ``hic`` as two processes on the first card
+    (``--engine-nprocs 2``, a gloo group on 127.0.0.1): ``(exit codes,
+    walls, each process's output tail)``. Both processes are stopped
+    before this returns."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES",
+                                          "0").split(",")[0]
+    env["PYTHONPATH"] = os.pathsep.join([ROOT, env.get("PYTHONPATH", "")])
+    env.update(extra_env or {})
+    argv = [sys.executable, "-m", "mustache_tpu_torch", "-f", hic, "-r",
+            "5kb", "-o", out, "-pt", str(PT), "-st", str(ST),
+            "--engine-json-log", "--engine-coordinator",
+            f"127.0.0.1:{port}", "--engine-nprocs", "2"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv + ["--engine-procid", str(i)], env=env,
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for i in range(2)]
+    rcs, walls, outs = [], [], []
+    try:
+        for p in procs:
+            o, _ = p.communicate(timeout=PROC_TIMEOUT)
+            rcs.append(p.returncode)
+            walls.append(time.perf_counter() - t0)
+            outs.append(o.decode(errors="replace")[-3000:])
+    except subprocess.TimeoutExpired:
+        fail(f"a CLI process of the two did not end in {PROC_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rcs, walls, outs
+
+
+def phase_sharding(dev, workdir, loops4, warm4, rows7):
+    """Phase 10: the sharded runners, the dryrun and the two-process CLI
+    on the card; ``loops4``/``warm4``: phase 4's rows and warm wall,
+    ``rows7``: phase 7's differential rows."""
+    from hic_writer import write_hic
+    from mustache_tpu_torch import (
+        DetectionConfig, detect_diff_loops_coo, detect_loops_coo,
+    )
+    from mustache_tpu_torch.dryrun import dryrun_multichip
+    from mustache_tpu_torch.sharding import make_mesh, make_runner
+
+    t_phase = time.perf_counter()
+    rep = {}
+    # (a) the dryrun on every card, and on four entries of the first
+    for label, n, devices in (("cards", torch.cuda.device_count(), None),
+                              ("cuda:0 x4", 4, ["cuda:0"] * 4)):
+        t0 = time.perf_counter()
+        r = dryrun_multichip(n, devices)
+        say(f"[10] dryrun_multichip on {label}: mesh {r['mesh']}, pipeline "
+            f"{r['pipeline_rows']} rows and diff {r['diff_rows']} rows "
+            f"replicated == unsharded (q bit-identical), production "
+            f"{r['production_rows']} rows; rowshard q max rel distance: "
+            f"diff {r['diff_rowshard_q_dist']:.3g}, production "
+            f"{r['production_rowshard_q_dist']:.3g}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        rep[f"dryrun_{n}"] = r
+
+    # (b) chr21 5 kb through both placements on 1 and 4 entries of cuda:0
+    x, y, v = workload(CHR21)
+    cfg = DetectionConfig(resolution=5000, distance_bp=2_000_000, pt=PT,
+                          st=ST, precision="float32")
+    _, golden_rs = read_tsv(GOLDEN_ROWSHARD)
+    key = lambda lp: (lp.bin1, lp.bin2, lp.scale)   # noqa: E731
+    walls = {"unsharded": warm4}
+    for placement in ("replicate", "rowshard"):
+        for k in (1, 4):
+            label = f"{placement}_{k}"
+            runner = make_runner(make_mesh(devices=["cuda:0"] * k),
+                                 placement)
+            rows, per_entry, launches, cold, warm = mesh_run(
+                lambda: detect_loops_coo(x, y, v, cfg, runner=runner),
+                runner)
+            walls[label] = warm
+            rep[f"launches_{label}"] = per_entry
+            if placement == "replicate":
+                if rows != loops4:
+                    fail(f"{label}: rows differ from phase 4's")
+                check = "rows identical to phase 4's"
+            else:
+                n_common, worst = compare_to_golden(
+                    loops_tsv_rows(rows, "chr21", 5000), golden_rs,
+                    tag="10")
+                dist = q_distance(rows, loops4, key, lambda lp: lp.q)
+                check = (f"{n_common} rows equal to the JAX rowshard golden "
+                         f"(q max rel err {worst:.3g}); q max rel distance "
+                         f"from phase 4's rows {dist:.3g}")
+                ev = runner.last_band_event
+                check += (f"; slab {ev['per_chip_mb']} MB per entry, "
+                          f"{ev['total_mb']} MB in all, replicated "
+                          f"{ev['replicated_mb']} MB")
+                rep[f"rowshard_{k}_band_mb"] = ev
+                rep[f"rowshard_{k}_q_dist_phase4"] = dist
+            say(f"[10] chr21 5 kb {placement} on {k} x cuda:0: {len(rows)} "
+                f"rows, {check}; fused launches per entry {per_entry}; "
+                f"wall cold {cold:.3f} s, warm {warm:.3f} s")
+    say("[10] chr21 5 kb warm walls: " + ", ".join(
+        f"{k} {w:.3f} s" for k, w in walls.items()))
+    rep["walls_s"] = walls
+
+    # (c) the differential workload on four entries, both placements
+    x1, y1, v1 = x, y, v
+    x2, y2, v2 = workload(CHR21_COND2)
+    dcfg = cfg.with_(pt2=PT2)
+    dkey = lambda r: (r[0], r[1], r[3], r[4])       # noqa: E731
+    for placement in ("replicate", "rowshard"):
+        runner = make_runner(make_mesh(devices=["cuda:0"] * 4), placement)
+        rows, per_entry, launches, cold, warm = mesh_run(
+            lambda: detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, dcfg,
+                                          runner=runner), runner)
+        dist = q_distance(rows, rows7, dkey, lambda r: r[2])
+        if placement == "replicate" and dist != 0.0:
+            fail(f"diff replicate: q differs from phase 7's ({dist:.3g})")
+        if dist > RTOL_ROWSHARD:
+            fail(f"diff rowshard: q max rel distance {dist:.3g} from "
+                 f"phase 7's rows")
+        rep[f"launches_diff_{placement}_4"] = per_entry
+        walls[f"diff_{placement}_4"] = warm
+        say(f"[10] diff {placement} on 4 x cuda:0: {len(rows)} rows, tags, "
+            f"anchors and scales equal to phase 7's, q max rel distance "
+            f"{dist:.3g}; fused launches per entry {per_entry}; wall cold "
+            f"{cold:.3f} s, warm {warm:.3f} s")
+
+    # (d) the CLI as two processes on the first card
+    hic = os.path.join(workdir, "three.hic")
+    t0 = time.perf_counter()
+    maps = {name: workload(spec) for name, spec in CLI3}
+    write_hic(hic, [(name, spec[0][0] * 5000) for name, spec in CLI3], 5000,
+              maps, version=8,
+              norms={("KR", name): np.ones(spec[0][0]) for name, spec in CLI3})
+    say(f"[10] wrote three 5 kb chromosomes as .hic v8 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    single = os.path.join(workdir, "single.tsv")
+    rc, _, wall1 = run_cli(["-f", hic, "-r", "5kb", "-o", single, "-pt",
+                            str(PT), "-st", str(ST)])
+    if rc != 0:
+        fail(f"single-process CLI on the three chromosomes exited {rc}")
+    multi = os.path.join(workdir, "multi.tsv")
+    rcs, pwalls, outs = two_process_cli(hic, multi)
+    if rcs != [0, 0]:
+        fail(f"two-process CLI exited {rcs}: {outs}")
+    with open(single, "rb") as a, open(multi, "rb") as b:
+        if a.read() != b.read():
+            fail("two-process TSV differs from the single-process TSV")
+    faulted = os.path.join(workdir, "fault.tsv")
+    frcs, fwalls, fouts = two_process_cli(
+        hic, faulted, {"MTPU_FAULT_INJECT": "ingest:100:c1"})
+    if frcs != [0, 1]:
+        fail(f"two-process CLI with c1 failing exited {frcs}: {fouts}")
+    _, frows = read_tsv(faulted)
+    if {r[0] for r in frows} != {"c0", "c2"}:
+        fail(f"faulted two-process TSV holds {sorted({r[0] for r in frows})}")
+    say(f"[10] CLI as two processes on the first card: TSV byte-equal to "
+        f"the single-process one ({wall1:.3f} s in process); walls per "
+        f"process {pwalls[0]:.3f} / {pwalls[1]:.3f} s; with c1 failing on "
+        f"process 1: exit codes {frcs}, the TSV holds c0 and c2, walls "
+        f"{fwalls[0]:.3f} / {fwalls[1]:.3f} s; phase 10 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    rep.update(cli_single_wall_s=wall1, cli_two_process_walls_s=pwalls,
+               cli_fault_walls_s=fwalls, cli_fault_rcs=frcs)
+    return rep
+
+
 @contextlib.contextmanager
 def python_decoder():
     """``HicFile._decode_blocks`` on its Python twin: the yardstick the
@@ -1860,16 +2106,17 @@ def main():
     build_all()
 
     report = phase_kernel_vs_plain(dev)
-    launches = phase_end_to_end()
+    launches, loops4, warm4 = phase_end_to_end()
     with tempfile.TemporaryDirectory() as workdir:
         files = phase_cli_files(dev, workdir)
         slice_1kb = phase_1kb(dev)
-        diff = phase_diff(dev)
+        diff, rows7 = phase_diff(dev)
         ladder = phase_ladder_route(dev, workdir)
         inter = phase_inter(dev, workdir)
+        sharding = phase_sharding(dev, workdir, loops4, warm4, rows7)
     say(json.dumps({"phase5_5kb": files, "phase6_1kb": slice_1kb,
                     "phase7_diff": diff, "phase8_ladder": ladder,
-                    "phase9_inter": inter}))
+                    "phase9_inter": inter, "phase10_sharding": sharding}))
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
@@ -1912,6 +2159,9 @@ def main():
         "bound_ms_diff_stacked": diff["bound_ms_diff_stacked"],
         "launches_cli_diff": diff["cli_diff_launches"],
         "launches_inter": inter["fused_launches_inter"],
+        "launches_per_entry_sharded": {
+            k[len("launches_"):]: v for k, v in sharding.items()
+            if k.startswith("launches_")},
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

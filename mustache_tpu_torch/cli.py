@@ -14,9 +14,19 @@ normalize and the ladder in float64 (``detect.resolve_route``). A
 inter-chromosomal unit (``inter.detect_inter_loops_coo``), from ``.hic``,
 ``.cool`` or ``.mcool`` input; from text or HiC-Pro input it prints the
 reference's gate message and is recorded as a failed unit, as in the JAX
-CLI. Not ported yet, and raising ``NotImplementedError`` before any work
-(ROADMAP Queue 1): ``--engine-mesh block|rowshard``, ``--engine-nprocs >
-1`` and ``--engine-coordinator`` (sharding).
+CLI.
+
+``--engine-mesh`` (``make_cli_runner``, ``sharding.py``): ``auto`` splits
+each chromosome's blocks over every visible CUDA device when there is
+more than one, ``block`` (the band on every device) and ``rowshard``
+(each device holds only its blocks' rows of it) force a mesh, of one
+entry on one device; ``off`` runs on one device. The inter path takes no
+mesh, as in the JAX CLI. ``--engine-nprocs N`` runs N processes (one per
+host or per card; each meshes over the CUDA devices it sees) joined by a
+``gloo`` group at ``--engine-coordinator host:port``: each process takes
+every N-th unit, writes its part files through the manifest, and after a
+barrier process 0 assembles the output (``mustache_tpu/cli.py:346-378,
+553-557``).
 """
 
 from __future__ import annotations
@@ -172,16 +182,18 @@ def build_parser(diff: bool = False) -> argparse.ArgumentParser:
                         "versions on the CPU.")
     p.add_argument("--engine-mesh", dest="engine_mesh", default="auto",
                    choices=["auto", "block", "rowshard", "off"],
-                   help="'auto' and 'off' run on one device; 'block' and "
-                        "'rowshard' (multi-GPU placements) are not ported "
-                        "yet and raise.")
+                   help="Multi-GPU placement: 'auto' splits the blocks over "
+                        "every visible CUDA device when there is more than "
+                        "one; 'block' (band replicated) and 'rowshard' "
+                        "(each device holds its blocks' rows) always mesh; "
+                        "'off' runs on one device.")
     p.add_argument("--engine-coordinator", dest="coordinator", default="",
-                   help="host:port of process 0 for multi-host runs "
-                        "(env MTPU_COORDINATOR); not ported yet, raises.")
+                   help="host:port of process 0 for multi-process runs "
+                        "(env MTPU_COORDINATOR).")
     p.add_argument("--engine-nprocs", dest="engine_nprocs", type=int,
-                   default=0, help="Total engine processes in a multi-host "
-                                   "run (env MTPU_NPROCS); more than 1 is "
-                                   "not ported yet and raises.")
+                   default=0, help="Total engine processes in a multi-"
+                                   "process run (env MTPU_NPROCS); each "
+                                   "takes every N-th unit.")
     p.add_argument("--engine-procid", dest="engine_procid", type=int,
                    default=-1, help="This process's id in a multi-host run "
                                     "(env MTPU_PROCID).")
@@ -201,18 +213,50 @@ def parse_args(argv):
     return build_parser(diff=False).parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a mode the port does not have yet,
-    before any work."""
-    if args.engine_mesh in ("block", "rowshard"):
-        raise NotImplementedError(
-            f"--engine-mesh {args.engine_mesh}: multi-device placement not "
-            "ported yet (ROADMAP Queue 1, sharding.py)")
-    coordinator, nprocs, _ = resolve_distributed(args)
-    if nprocs > 1 or coordinator:
-        raise NotImplementedError(
-            "multi-process runs (--engine-nprocs / --engine-coordinator) not "
-            "ported yet (ROADMAP Queue 1, sharding.py)")
+def make_cli_runner(mode: str, dev, log=None):
+    """The sharded runner of ``--engine-mesh`` (``mustache_tpu/cli.py:
+    185-202``): a (block, row=1) mesh over this process's devices (every
+    visible CUDA device; the CPU is one device). ``auto`` meshes only when
+    there is more than one, ``block`` and ``rowshard`` always (a one-entry
+    mesh on one device). None when meshing is off."""
+    if mode == "off":
+        return None
+    from mustache_tpu_torch.sharding import make_mesh, make_runner
+
+    if dev.type == "cuda":
+        import torch
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    else:
+        devices = [dev]
+    if mode == "auto" and len(devices) <= 1:
+        return None
+    placement = "rowshard" if mode == "rowshard" else "replicate"
+    runner = make_runner(make_mesh(devices=devices), placement, log=log)
+    if log is not None:
+        log.event("mesh", devices=[str(d) for d in runner.devices],
+                  placement=placement)
+    return runner
+
+
+def start_processes(args):
+    """``(nprocs, procid)`` of this run, after joining the process group
+    when there is more than one process."""
+    coordinator, nprocs, procid = resolve_distributed(args)
+    if nprocs > 1:
+        from mustache_tpu_torch.sharding import initialize_distributed
+        initialize_distributed(coordinator, nprocs, procid)
+    return nprocs, procid
+
+
+def finish_processes(nprocs: int, procid: int, assemble) -> None:
+    """After every process has written its part files (the barrier),
+    process 0 calls ``assemble()``; then the group is left."""
+    from mustache_tpu_torch.sharding import barrier, finalize_distributed
+
+    barrier("mustache-tpu-parts-complete")
+    if procid == 0:
+        assemble()
+    finalize_distributed()
 
 
 def _chromosome_lists(args, f, res):
@@ -326,7 +370,6 @@ def _profiler(profile_dir: str, dev):
 def main(argv=None):
     start_time = time.time()
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    check_ported(args)
     dev = resolve_device(PLATFORMS[args.platform])   # no CUDA: raises
     print("\n")
 
@@ -355,14 +398,10 @@ def main(argv=None):
             print("Error: Couldn't find specified bias file")
             return 1
 
+    nprocs, procid = start_processes(args)
     from mustache_tpu_torch.runlog import RunLog
     log = RunLog(json_mode=args.json_log)
-    if args.engine_mesh == "auto" and dev.type == "cuda":
-        import torch
-        if torch.cuda.device_count() > 1:
-            log.event("mesh", devices=torch.cuda.device_count(), used=1,
-                      detail="multi-GPU placement not ported yet: one "
-                             "device runs every chromosome")
+    runner = make_cli_runner(args.engine_mesh, dev, log)
 
     prof = None
     if args.profile_dir:
@@ -370,7 +409,11 @@ def main(argv=None):
         prof.start()
 
     manifest = None
-    if args.resume:
+    done = set()
+    if args.resume or nprocs > 1:
+        # a multi-process run always goes through the manifest: each
+        # process writes its units' part files, process 0 assembles them
+        # after the barrier
         from mustache_tpu_torch.manifest import RunManifest, config_fingerprint
         base_cfg = DetectionConfig(
             resolution=res, distance_bp=dist_bp, pt=args.pt, st=args.st,
@@ -385,7 +428,8 @@ def main(argv=None):
                 "bias": os.path.abspath(biasf) if biasf else "",
                 "bed": os.path.abspath(args.bed) if args.bed else "",
             }))
-        done = manifest.completed_chromosomes()
+        if args.resume:
+            done = manifest.completed_chromosomes()
         if done:
             log.event("resume", skipping=sorted(done))
     else:
@@ -413,8 +457,17 @@ def main(argv=None):
                           attempt=attempt + 1, error=str(exc))
                 time.sleep(0.1 * (2 ** attempt))
 
-    todo = [(c, c2, _unit(c, c2)) for c, c2 in zip(chr_list, chr_list2)
-            if not (manifest and _unit(c, c2) in done)]
+    pairs = list(zip(chr_list, chr_list2))
+    if nprocs > 1:
+        from mustache_tpu_torch.sharding import shard_chromosomes
+        pairs = shard_chromosomes(pairs, procid, nprocs)
+        log.event("shard", process=procid, nprocs=nprocs,
+                  chromosomes=[_unit(c, c2) for c, c2 in pairs])
+    todo = [(c, c2, _unit(c, c2)) for c, c2 in pairs
+            if _unit(c, c2) not in done]
+    if manifest and not args.resume:
+        # fresh run: a previous run's parts must not reach this assembly
+        manifest.invalidate([u for _, _, u in todo])
 
     if args.engine_warmup:
         warm(dev, log)
@@ -496,7 +549,7 @@ def main(argv=None):
                                   float(r[3])) for r in rows_i]
                 else:
                     loops = detect_loops_coo(
-                        x, y, v, cfg, device=dev,
+                        x, y, v, cfg, device=dev, runner=runner,
                         log=lambda m, c=str(chromosome): log.event(
                             "detect_plan", chromosome=c, detail=m))
         except Exception as exc:
@@ -527,8 +580,13 @@ def main(argv=None):
 
     if prefetch is not None:
         prefetch.shutdown(wait=False)
-    if manifest:
-        unit_order = [_unit(c, c2) for c, c2 in zip(chr_list, chr_list2)]
+    unit_order = [_unit(c, c2) for c, c2 in zip(chr_list, chr_list2)]
+    if nprocs > 1:
+        # multi-process runs keep their parts: process 0 cannot see its
+        # peers' failures
+        finish_processes(nprocs, procid,
+                         lambda: manifest.assemble(unit_order, HEADER))
+    elif manifest:
         manifest.assemble(unit_order, HEADER)
         if not failed_units:
             # fully-successful run: the parts served their purpose;

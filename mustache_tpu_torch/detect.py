@@ -68,6 +68,20 @@ def dense_from_band(band_blk: torch.Tensor) -> torch.Tensor:
     return wide.reshape(*lead, N * (N + 1))[..., : N * N].reshape(*lead, N, N)
 
 
+def band_of(x: torch.Tensor, Dl: int, fill) -> torch.Tensor:
+    """Band image ``[..., N, Dl]`` of dense ``[..., N, N]`` maps, ``band[i,
+    d] = x[i, i+d]``, with ``fill`` where ``i + d >= N``: the flat
+    ``[N, N+1]`` reinterpret of ``mustache_tpu/diff.py:375-382``."""
+    N = x.shape[-1]
+    lead = x.shape[:-2]
+    flat = x.reshape(*lead, N * N)
+    ext = torch.cat([flat, flat[..., :N]], dim=-1)
+    bnd = ext.reshape(*lead, N, N + 1)[..., :Dl]
+    r = torch.arange(N, device=x.device)
+    validl = (r[:, None] + r[None, :Dl]) < N
+    return torch.where(validl, bnd, fill)
+
+
 def _preamble(c: torch.Tensor, d_px: int):
     """Support mask + sentinel fill of [..., N, N] blocks
     (mustache.py:699-706, intra-chromosomal)."""
@@ -454,34 +468,57 @@ class BlockDetector:
                                 support[1], scrub_nan=scrub_nan)
         return tuple(a[b] for a in state)
 
-    def fn_band(self, band: torch.Tensor, starts) -> dict:
-        """Batch detection from the normalized chromosome band
-        (band[i, d] = map[i, i+d], rows >= max(starts)+n): each start is
-        sliced and densified on the device. A start of -1 is a pad slot:
-        neither route computes it and its outputs are empty. Each stage
-        is a named profiler range (``detect.*``)."""
+    def _detect(self, slices: torch.Tensor, valid_h) -> dict:
+        """Batch detection from the blocks' normalized band slices ``[B,
+        n, >= Dl]`` on the detector's route; ``valid_h[b] == 0`` marks a
+        pad slot, which neither route computes and whose outputs are
+        empty. Each stage is a named profiler range (``detect.*``)."""
         cfg, spec, n = self.cfg, self.spec, self.n
         d_px = cfg.distance_px
         rf = torch.profiler.record_function
         with rf("detect.preamble"):
-            slices = torch.stack([band[max(s, 0): max(s, 0) + n]
-                                  for s in starts])
             cs, nz = _preamble(dense_from_band(slices), d_px)
         with rf("detect." + self.route):
-            state = self.route_state(cs, nz, slices,
-                                     [int(s >= 0) for s in starts])
+            state = self.route_state(cs, nz, slices, valid_h)
         del cs, nz
-        geom = _BandGeom(n, d_px, band.device)
+        geom = _BandGeom(n, d_px, slices.device)
         st, log_pt = thresholds(cfg)
         outs = []
         with rf("detect.epilogue"):
-            for b in range(len(starts)):
+            for b in range(len(valid_h)):
                 support = _slice_support(geom, slices[b], d_px)
                 _, best_logp, best_sig = self.block_best(state, b, support)
                 outs.append(_epilogue(
                     geom, best_logp, best_sig, *support,
                     det_ceil=spec.det_ceil, K=self.K, st=st, log_pt=log_pt))
             return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def fn_band(self, band: torch.Tensor, starts) -> dict:
+        """Batch detection from the normalized chromosome band
+        (band[i, d] = map[i, i+d], rows >= max(starts)+n): each start is
+        sliced and densified on the device. A start of -1 is a pad slot:
+        neither route computes it and its outputs are empty."""
+        n = self.n
+        with torch.profiler.record_function("detect.preamble"):
+            slices = torch.stack([band[max(s, 0): max(s, 0) + n]
+                                  for s in starts])
+        return self._detect(slices, [int(s >= 0) for s in starts])
+
+    def fn(self, blocks: torch.Tensor) -> dict:
+        """Batch detection of dense normalized blocks ``[B, n, n]`` (the
+        JAX ``BlockDetector.fn``, the entry of the dense runner): each
+        block's band ``band[i, d] = block[i, i+d]`` (d < Dl, where every
+        intra-chromosomal contact lies) goes the route of
+        :meth:`fn_band`; the outputs keep the JAX key names."""
+        dtype = self.taps.dtype
+        Dl = band_width(self.n, self.cfg.distance_px)
+        with torch.profiler.record_function("detect.preamble"):
+            slices = band_of(blocks.to(dtype), Dl, 0.0)
+        return self._detect(slices, [1] * blocks.shape[0])
+
+    def fn_single(self, block: torch.Tensor) -> dict:
+        """:meth:`fn` of one dense block ``[n, n]``, outputs unbatched."""
+        return {k: a[0] for k, a in self.fn(block[None]).items()}
 
     def fn_band_packed(self, band: torch.Tensor, starts) -> torch.Tensor:
         """``fn_band`` packed into one [B, F + I] buffer (one D2H); the

@@ -29,10 +29,9 @@ float64 and ``exact_normalize``, skipped for ``normalize=False``. The
 host finish, the regrow and the block loop are copies of
 ``mustache_tpu/diff.py:485-566, 607-624, 653-855``.
 
-Not ported yet, and raising ``NotImplementedError`` before the device is
-resolved (ROADMAP Queue 1): ``runner`` (sharding). Like the port's
-single-map path, the last batch of a chromosome is not padded to the
-batch size.
+A ``sharding.MeshRunner`` splits each batch over its mesh's entries, as
+for the single-map path; pad slots are not launched, so the last batch
+of a chromosome is not padded to the batch size.
 """
 
 from __future__ import annotations
@@ -48,15 +47,17 @@ from mustache_tpu_torch.config import (
 )
 from mustache_tpu_torch.detect import (
     SENTINEL, BlockDetector, _BandGeom, _band_candidates, _cluster_components,
-    _out_spec, _pack_batched, _preamble, _slice_support, band_width,
-    build_detector, dense_from_band, out_shapes as single_out_shapes,
+    _out_spec, _pack_batched, _preamble, _slice_support, band_of,
+    band_width, build_detector, dense_from_band, out_shapes as single_out_shapes,
     resolve_route, thresholds, unpack_block,
 )
-from mustache_tpu_torch.device import resolve_device
 from mustache_tpu_torch.kernels.fused_ladder import _symmetric_pad
 from mustache_tpu_torch.ladder import band_blur
-from mustache_tpu_torch.pipeline import _batch_size, normalized_band
+from mustache_tpu_torch.pipeline import (
+    describe_runner, local_runner, normalized_bands,
+)
 from mustache_tpu_torch.scalespace import LadderSpec
+from mustache_tpu_torch.sharding import MeshRunner
 
 _INF = float("inf")
 
@@ -67,20 +68,6 @@ def diff_planes(spec: LadderSpec) -> list[int]:
     bpo = spec.planes_per_octave + 3
     return [o * bpo + k for o in range(len(spec.octave_values))
             for k in (1, 2)]
-
-
-def band_of(x: torch.Tensor, Dl: int, fill) -> torch.Tensor:
-    """Band image ``[..., N, Dl]`` of dense ``[..., N, N]`` maps, ``band[i,
-    d] = x[i, i+d]``, with ``fill`` where ``i + d >= N``: the flat
-    ``[N, N+1]`` reinterpret of ``mustache_tpu/diff.py:375-382``."""
-    N = x.shape[-1]
-    lead = x.shape[:-2]
-    flat = x.reshape(*lead, N * N)
-    ext = torch.cat([flat, flat[..., :N]], dim=-1)
-    bnd = ext.reshape(*lead, N, N + 1)[..., :Dl]
-    r = torch.arange(N, device=x.device)
-    validl = (r[:, None] + r[None, :Dl]) < N
-    return torch.where(validl, bnd, fill)
 
 
 def diff_p_band(cs1, cs2, nz1, nz2, taps_sel, *, R: int, Dl: int, valid):
@@ -353,14 +340,15 @@ def _maybe_regrow_diff(block_out: dict, cfg: DetectionConfig,
 # ---------------------------------------------------------------------------
 
 def _diff_bands(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig,
-                dev: torch.device, *, normalize: bool = True,
-                exact: bool = False):
-    """Both conditions' bands on ``dev`` and what went up, on a shared
-    band shape, each normalized with its OWN bin count (the window
-    clipping at the diagonal tails depends on it,
+                runner: MeshRunner, *, normalize: bool = True,
+                exact: bool = False, plan=None):
+    """Both conditions' bands on every entry of ``runner`` and what went
+    up, on a shared band shape, each normalized with its OWN bin count
+    (the window clipping at the diagonal tails depends on it,
     ``mustache_tpu/diff.py:754-761``) by the single-map rule
-    (``pipeline.normalized_band``). Returns ``(bands, descriptions, n)``
-    with ``n`` the larger bin count."""
+    (``pipeline.normalized_bands``; a row-shard ``plan`` gives each entry
+    its slab pair). Returns ``(per condition its band per entry,
+    descriptions, n)`` with ``n`` the larger bin count."""
     d_px = cfg.distance_px
     n1 = int(max(x1.max(), y1.max())) + 1
     n2 = int(max(x2.max(), y2.max())) + 1
@@ -368,8 +356,8 @@ def _diff_bands(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig,
     width = cfg.chunk_size
     shape = (bucket_rows(max(n, width)), band_width(width, d_px))
     bands, sent = zip(*(
-        normalized_band(x, y, v, cfg, shape, n_own, dev,
-                        normalize=normalize, exact=exact)
+        normalized_bands(x, y, v, cfg, shape, n_own, runner,
+                         normalize=normalize, exact=exact, plan=plan)
         for x, y, v, n_own in ((x1, y1, v1, n1), (x2, y2, v2, n2))))
     return bands, sent, n
 
@@ -387,19 +375,18 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
     """Differential loop calls for one chromosome, both conditions, on
     ``device``: the card by default; ``device="cpu"`` runs the kernel
     route's plain PyTorch version. ``normalize`` and ``exact_normalize``
-    as in ``pipeline.detect_loops_coo``. Sharded runs raise
-    ``NotImplementedError`` before the device is resolved. The inputs are
-    not modified. ``log``: optional callable taking one message string.
+    as in ``pipeline.detect_loops_coo``; ``runner``: a
+    ``sharding.MeshRunner`` as there (``device`` is then not read), each
+    entry holding both conditions' bands (replicate) or a slab pair
+    (rowshard). The inputs are not modified. ``log``: optional callable
+    taking one message string.
 
     Returns a list of ``(bin1, bin2, q, scale, tag)`` in block order with
     tag 1=loop1, 2=diffloop1, 3=loop2, 4=diffloop2
     (diff_mustache.py:704-715)."""
-    if runner is not None:
-        raise NotImplementedError(
-            "runner: sharded runs not ported yet (ROADMAP Queue 1, "
-            "sharding.py)")
     route = resolve_route(cfg)
-    dev = resolve_device(device)
+    if runner is None:
+        runner = local_runner(device)
     if len(v1) == 0 or len(v2) == 0:
         return []
     x1, y1, v1 = _as_coo(x1, y1, v1)
@@ -408,14 +395,19 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
     d_px = cfg.distance_px
     # always chunk x chunk, zero-padded (diff_mustache.py:671)
     width = cfg.chunk_size
-    det = build_diff_detector(cfg, width, device=dev)
-    (band1, band2), sent, n = _diff_bands(
-        x1, y1, v1, x2, y2, v2, cfg, dev, normalize=normalize,
-        exact=exact_normalize)
-
+    n = max(int(max(x.max(), y.max())) + 1 for x, y in ((x1, y1), (x2, y2)))
     start, end = chunk_grid(n, width, d_px)
     masks = block_mask_sizes(start, end, d_px)
     nblocks = len(start)
+    dets = runner.per_device(
+        lambda d: build_diff_detector(cfg, width, device=d))
+    plan = (runner.plan_rowshard(start, width)
+            if runner.band_placement == "rowshard" else None)
+    (bands1, bands2), sent, _ = _diff_bands(
+        x1, y1, v1, x2, y2, v2, cfg, runner, normalize=normalize,
+        exact=exact_normalize, plan=plan)
+    pairs = list(zip(bands1, bands2))
+
     if route == "kernel":
         # a block of the batch holds 28 * n^2 + 80 * n * Dl bytes at its
         # peak: the stacked preamble (both conditions' widened slices,
@@ -427,49 +419,53 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
         # 1079.0 MB at n=4000, Dl=2048 (769.5 MB), on an NVIDIA H100
         # 80GB HBM3 at 700 W. The epilogue runs one block at a time: two
         # tables' state, at most 128 * n * Dl bytes once per batch.
-        Dl = band1.shape[1]
-        B = _batch_size(cfg, nblocks, dev,
-                        per_block=28 * width * width + 80 * width * Dl,
-                        reserve=128 * width * Dl)
+        Dl = bands1[0].shape[1]
+        Bl = runner.local_batch(
+            cfg, nblocks, per_block=28 * width * width + 80 * width * Dl,
+            reserve=128 * width * Dl)
     else:
         # the JAX package's XLA cap for the triple ladder: ~135 n^2 live
         # elements of the compute dtype per block (mustache_tpu/diff.py:
         # 594-597)
-        B = _batch_size(cfg, nblocks, dev,
-                        per_block=135 * width * width * band1.element_size())
+        Bl = runner.local_batch(
+            cfg, nblocks,
+            per_block=135 * width * width * bands1[0].element_size())
     if log is not None:
-        log(f"n={n} blocks={nblocks} of {width}^2 batch={B} (stacked "
-            f"{2 * B} slots) device={dev} route={route} "
-            f"precision={cfg.precision} "
+        log(f"n={n} blocks={nblocks} of {width}^2 batch={runner.nb * Bl} "
+            f"(stacked {2 * Bl} slots per entry) {describe_runner(runner)} "
+            f"route={route} precision={cfg.precision} "
             + " ".join(f"cond{m} {d}" for m, d in zip((1, 2), sent)))
 
-    def run(d, idxs) -> np.ndarray:
-        # one packed D2H per batch
-        return d.fn_band_packed(band1, band2,
-                                [start[i] for i in idxs]).cpu().numpy()
+    def rerun_block(k, s, cap):
+        """Re-detect the block at local start ``s`` of entry k with a
+        larger candidate capacity, on that entry's bands or slab pair."""
+        d = build_diff_detector(cfg, width, device=runner.devices[k],
+                                max_candidates=cap)
+        row = d.fn_band_packed(*pairs[k], [s]).cpu().numpy()[0]
+        return unpack_block(d.out_spec, row)
 
-    def rerun_block(i, cap):
-        """Re-detect block i with a larger candidate capacity."""
-        d = build_diff_detector(cfg, width, device=dev, max_candidates=cap)
-        return unpack_block(d.out_spec, run(d, [i])[0])
-
-    rows = []
-    for b0 in range(0, nblocks, B):
-        idxs = list(range(b0, min(b0 + B, nblocks)))
-        packed = run(det, idxs)
-        for bi, i in enumerate(idxs):
+    if plan is not None:
+        launches, run = plan.launches(Bl), runner.run_rowshard
+    else:
+        launches, run = runner.replicated_launches(start, Bl), runner.run
+    # rows tagged by block index: entries return their blocks
+    # entry-major, so block order is restored by a stable sort at the end
+    tagged = []
+    for idxs, sl in launches:
+        for i, k, s, row in run(dets, pairs, idxs, sl):
             block_out = _maybe_regrow_diff(
-                unpack_block(det.out_spec, packed[bi]), cfg,
-                lambda cap, i=i: rerun_block(i, cap))
+                unpack_block(dets[0].out_spec, row), cfg,
+                lambda cap, k=k, s=s: rerun_block(k, s, cap))
             groups = finish_diff_block(block_out, start=start[i], cfg=cfg,
-                                       spec=det.spec)
+                                       spec=dets[0].spec)
             mask = masks[i]
             for tag, group in zip((1, 2, 3, 4), groups):
                 for r in group:
                     if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
-                        rows.append((int(r[0]), int(r[1]), float(r[2]),
-                                     float(r[3]), tag))
-    return rows
+                        tagged.append((i, (int(r[0]), int(r[1]), float(r[2]),
+                                           float(r[3]), tag)))
+    tagged.sort(key=lambda t: t[0])
+    return [row for _, row in tagged]
 
 
 def find_diff_loops(x1, y1, v1, x2, y2, v2, *, resolution: int = 5000,

@@ -15,10 +15,12 @@ prefetch are the single-map CLI's. The run goes on the card unless
 the ladder in float64), as in the single-map CLI. A ``-ch2`` chromosome
 that differs from its ``-ch`` one stops the run with the JAX CLI's
 "Interchromosomal analysis is not supported." and exit code 1
-(``mustache_tpu/diff_cli.py:173-175``). Not ported yet, and raising
-``NotImplementedError`` before any work (ROADMAP Queue 1):
-``--engine-mesh block|rowshard``, ``--engine-nprocs > 1`` and
-``--engine-coordinator``.
+(``mustache_tpu/diff_cli.py:173-175``). ``--engine-mesh`` and the
+multi-process flags work as in the single-map CLI: a mesh holds both
+conditions' bands on every device (``block``) or a slab pair on each
+(``rowshard``), and N processes each take every N-th chromosome, write
+the four files' parts, and process 0 assembles all four after the barrier
+(``mustache_tpu/diff_cli.py:116-160, 250``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import time
 
 from mustache_tpu_torch.cli import (
     HEADER, PLATFORMS, _chromosome_lists, _profiler, build_parser,
-    check_ported, load_contacts, warm,
+    finish_processes, load_contacts, make_cli_runner, start_processes, warm,
 )
 from mustache_tpu_torch.config import DetectionConfig, clamp_distance_filter, parse_bp
 from mustache_tpu_torch.device import resolve_device
@@ -46,7 +48,6 @@ def parse_args(argv):
 def main(argv=None):
     start_time = time.time()
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    check_ported(args)
     dev = resolve_device(PLATFORMS[args.platform])   # no CUDA: raises
     print("\n")
 
@@ -79,8 +80,16 @@ def main(argv=None):
         print("Error: Couldn't find the specified bias file2")
         return 1
 
+    # validate BEFORE the process group forms (a process that errors out
+    # after it strands its peers at the barrier)
+    if any(str(c) != str(c2) for c, c2 in zip(chr_list, chr_list2)):
+        print("Interchromosomal analysis is not supported.")
+        return 1
+
+    nprocs, procid = start_processes(args)
     from mustache_tpu_torch.runlog import RunLog
     log = RunLog(json_mode=args.json_log)
+    runner = make_cli_runner(args.engine_mesh, dev, log)
 
     def ingest_one(chromosome, chromosome2):
         from mustache_tpu_torch.faults import maybe_fail
@@ -109,7 +118,7 @@ def main(argv=None):
 
     manifests = None
     done = set()
-    if args.resume:
+    if args.resume or nprocs > 1:
         # four per-file manifests sharing one fingerprint; a unit counts
         # as completed only when ALL four parts carry a matching marker
         # (a crash between files leaves the unit incomplete -> rerun)
@@ -128,13 +137,23 @@ def main(argv=None):
         })
         manifests = {t: RunManifest(args.outdir + sfx, fp)
                      for t, sfx in SUFFIXES.items()}
-        done = set.intersection(
-            *[m.completed_chromosomes() for m in manifests.values()])
+        if args.resume:
+            done = set.intersection(
+                *[m.completed_chromosomes() for m in manifests.values()])
         if done:
             log.event("resume", skipping=sorted(done))
 
-    pairs = [(c, c2) for c, c2 in zip(chr_list, chr_list2)
-             if str(c) not in done]
+    pairs = list(zip(chr_list, chr_list2))
+    if nprocs > 1:
+        from mustache_tpu_torch.sharding import shard_chromosomes
+        pairs = shard_chromosomes(pairs, procid, nprocs)
+        log.event("shard", process=procid, nprocs=nprocs,
+                  chromosomes=[str(c) for c, _ in pairs])
+    pairs = [(c, c2) for c, c2 in pairs if str(c) not in done]
+    if manifests is not None and not args.resume:
+        # fresh run: a previous run's parts must not reach this assembly
+        for m in manifests.values():
+            m.invalidate([str(c) for c, _ in pairs])
     unit_order = [str(c) for c in chr_list]
 
     if args.engine_warmup:
@@ -156,13 +175,6 @@ def main(argv=None):
     failed_units: list[str] = []
     wrote_header = False
     for i, (chromosome, chromosome2) in enumerate(pairs):
-        if chromosome != chromosome2:
-            print("Interchromosomal analysis is not supported.")
-            if prefetch is not None:
-                prefetch.shutdown(wait=False)
-            if prof is not None:
-                prof.stop()
-            return 1
         unit_name = str(chromosome)
         ingest_err = None
         with log.phase("ingest", chromosome=unit_name,
@@ -201,7 +213,7 @@ def main(argv=None):
         with log.phase("detect", chromosome=unit_name,
                        contacts=len(v1) + len(v2)):
             rows = detect_diff_loops_coo(
-                x1, y1, v1, x2, y2, v2, cfg, device=dev,
+                x1, y1, v1, x2, y2, v2, cfg, device=dev, runner=runner,
                 log=lambda m, c=unit_name: log.event(
                     "detect_plan", chromosome=c, detail=m)) \
                 if len(v1) and len(v2) else []
@@ -255,7 +267,10 @@ def main(argv=None):
 
     if prefetch is not None:
         prefetch.shutdown(wait=False)
-    if manifests is not None:
+    if nprocs > 1:
+        finish_processes(nprocs, procid, lambda: [
+            m.assemble(unit_order, HEADER) for m in manifests.values()])
+    elif manifests is not None:
         for m in manifests.values():
             m.assemble(unit_order, HEADER)
         if not failed_units:

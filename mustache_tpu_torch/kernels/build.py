@@ -17,6 +17,7 @@ time; a missing compiler or a failed compile raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -114,29 +115,43 @@ def library_path(name: str, src: Path | None = None) -> Path:
     return build_dir() / f"lib{name}_{digest[:16]}.so"
 
 
+def _write_atomic(path: Path, text: str) -> None:
+    fd, tmp = tempfile.mkstemp(suffix=path.suffix, dir=path.parent)
+    with os.fdopen(fd, "w") as fh:
+        fh.write(text)
+    os.replace(tmp, path)
+
+
 def build(name: str, src: Path | None = None) -> Path:
     """Compile ``src`` (default ``csrc/<name>.cu``) unless its hashed
-    library exists. The library is written under a temporary name and
-    renamed into place, so a concurrent or interrupted build never leaves
-    a partial file."""
+    library exists. Processes that share the build directory (several
+    engine processes on one host) take an exclusive file lock for the
+    build, so one compiles and the others wait and load its library; the
+    report and the library are written under temporary names and renamed
+    into place, so an interrupted build never leaves a partial file."""
     src = _source(name, src)
     out = library_path(name, src)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        res = subprocess.run(_command(src, tmp), capture_output=True,
-                             text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"build of {name} failed ({res.returncode}):\n"
-                               + res.stderr[-4000:])
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():                 # built while this one waited
+            return out
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        try:
+            res = subprocess.run(_command(src, tmp), capture_output=True,
+                                 text=True, timeout=600)
+            if res.returncode != 0:
+                raise RuntimeError(f"build of {name} failed "
+                                   f"({res.returncode}):\n"
+                                   + res.stderr[-4000:])
+            _write_atomic(out.with_suffix(".log"), res.stdout + res.stderr)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return out
 
 

@@ -166,9 +166,12 @@ def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
                            + lib.mtt_error_string(rc).decode())
     LAUNCHES += 1
     # deterministic cross-tile reduction of the per-tile partials (tiles
-    # without support carry +inf / 0; pad slots 0 / 0)
+    # without support carry +inf / 0; pad slots 0 / 0). The sums go slot
+    # by slot: a reduction over the whole batch may split its work by the
+    # batch size, and a block's sums must not depend on the batch it rode
+    # in (a sharded run batches the same blocks differently)
     locs = parts[:, :, :P].amin(dim=1)
-    sums = parts[:, :, P:].sum(dim=1)
+    sums = torch.stack([parts[b, :, P:].sum(dim=0) for b in range(B)])
     return band_v, band_sig, locs, sums
 
 
@@ -223,8 +226,19 @@ def _blur_octave(cpad: torch.Tensor, taps: torch.Tensor, N: int):
 def fused_ladder_nms_reference(cs, nzf, kernels, *, R: int, n_octaves: int,
                                planes_per_octave: int, DB: int, valid=None):
     """Plain PyTorch version of the fused kernel: same contract, one block
-    and one octave at a time (the live set is one octave's 12 blur planes
-    of one block, never the whole [S, N, N] stack)."""
+    and one octave at a time, on the band where the support lies: the
+    octave's 12 blurs at the band cells (``ladder.band_blur``, banded
+    Toeplitz matmuls over the symmetric-padded block, the kernel's reflect
+    boundary), the DoG planes and their 3x3 maxima in band coordinates
+    (``ladder.max3x3_band``, equal to the dense filter wherever the
+    support can lie, 2 <= d <= DB - 3), then the NMS predicate, the
+    running best and the support partials per plane. Detections need
+    support, so nothing outside the band can change."""
+    from types import SimpleNamespace
+
+    from mustache_tpu_torch.detect import band_of
+    from mustache_tpu_torch.ladder import band_blur, max3x3_band
+
     B, N, _ = cs.shape
     dev = cs.device
     P = n_octaves * planes_per_octave
@@ -232,29 +246,25 @@ def fused_ladder_nms_reference(cs, nzf, kernels, *, R: int, n_octaves: int,
     band_sig = torch.full((B, N, DB), -1, dtype=torch.int32, device=dev)
     locs = torch.zeros((B, P), dtype=torch.float32, device=dev)
     sums = torch.zeros((B, P), dtype=torch.float32, device=dev)
-    rows = torch.arange(N, device=dev)
-    cols = rows[:, None] + torch.arange(DB, device=dev)[None, :]  # j = i + d
-    in_mat = cols < N
-    colc = cols.clamp(max=N - 1)
-    d = rows[None, :] - rows[:, None]
-    in_band = (d >= 0) & (d < DB)
+    rows = torch.arange(N, device=dev)[:, None].expand(N, DB)
+    geom = SimpleNamespace(N=N, band_il=rows,
+                           band_yl=rows + torch.arange(DB, device=dev))
     inf = torch.tensor(float("inf"), device=dev)
     valid_h = None if valid is None else valid.cpu().tolist()
     for b in range(B):
         if valid_h is not None and not valid_h[b]:
             continue
-        nz = (nzf[b] > 0.5) & in_band
+        nz = band_of(nzf[b] > 0.5, DB, False)
         nzw = nz.to(torch.float32)
-        cpad = _symmetric_pad(cs[b], R)
-        best_v = torch.zeros((N, N), dtype=torch.float32, device=dev)
-        best_sig = torch.full((N, N), -1, dtype=torch.int32, device=dev)
+        cpad = _symmetric_pad(cs[b], R)[None]
+        best_v = band_v[b]
+        best_sig = band_sig[b]
         for o in range(n_octaves):
-            G = _blur_octave(
-                cpad, kernels[o * BLURS_PER_OCTAVE:(o + 1) * BLURS_PER_OCTAVE],
-                N)
-            L = G[:-1] - G[1:]                  # [11, N, N] DoG planes
+            G = band_blur(cpad, kernels[o * BLURS_PER_OCTAVE:
+                                        (o + 1) * BLURS_PER_OCTAVE], N, DB)[0]
+            L = G[:-1] - G[1:]                  # [11, N, DB] DoG planes
             del G
-            M = _max3x3(L)
+            M = max3x3_band(geom, L)
             for j in range(1, planes_per_octave + 1):
                 plane = o * planes_per_octave + j - 1
                 Lp, Lc, Ln = L[j - 1], L[j], L[j + 1]
@@ -265,9 +275,7 @@ def fused_ladder_nms_reference(cs, nzf, kernels, *, R: int, n_octaves: int,
                 will = (nz & (Lc > best_v) & (Lc == mC)
                         & ((Lp == mP) | (Ln == mN))
                         & (Lc > mP) & (Lc > mN))
-                best_v = torch.where(will, Lc, best_v)
-                best_sig = torch.where(will, plane, best_sig)
+                best_v.copy_(torch.where(will, Lc, best_v))
+                best_sig.copy_(torch.where(will, plane, best_sig))
             del L, M
-        band_v[b] = torch.where(in_mat, best_v[rows[:, None], colc], 0.0)
-        band_sig[b] = torch.where(in_mat, best_sig[rows[:, None], colc], -1)
     return band_v, band_sig, locs, sums

@@ -2,10 +2,10 @@
 batches of blocks (slice, densify, detection route, epilogue, one packed
 D2H) -> host finish -> overlap dedup.
 
-Torch port of ``mustache_tpu/pipeline.py::detect_loops_coo`` without its
-sharded runners. The block grid, overlap sizes and ownership masks are
-the reference's (mustache.py:896-960), so per-block statistics reproduce
-the reference's numbers.
+Torch port of ``mustache_tpu/pipeline.py::detect_loops_coo``. The block
+grid, overlap sizes and ownership masks are the reference's
+(mustache.py:896-960), so per-block statistics reproduce the reference's
+numbers.
 
 Normalize, by the JAX package's rule: the float32 default fills the RAW
 band on the host in the narrowest lossless encoding (uint8, uint16 or
@@ -17,8 +17,10 @@ dtype, which goes up once; ``normalize=False`` uploads the raw band in
 the compute dtype. The detection route follows from the configuration
 (``detect.resolve_route``) and is named in the plan line.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP Queue 1):
-``runner`` (sharding).
+Every run goes through a ``sharding.MeshRunner``: an unsharded run is a
+one-entry mesh of its device, a sharded one splits each batch of blocks
+over the mesh's entries (``sharding.py``), each holding the band
+(replicate) or its slab of it (rowshard).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from mustache_tpu_torch.detect import (
 from mustache_tpu_torch.device import resolve_device
 from mustache_tpu_torch.io import native
 from mustache_tpu_torch.normalize import normalize_sparse
+from mustache_tpu_torch.sharding import MeshRunner, RowShardPlan, make_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,16 +218,17 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
 
 
 def _batch_size(cfg: DetectionConfig, nblocks: int, device: torch.device,
-                per_block: int, reserve: int = 0) -> int:
+                per_block: int, reserve: int = 0, share: int = 1) -> int:
     """Blocks per batch. On CUDA, from free device memory: half of it,
-    less ``reserve`` bytes of per-batch scratch, over ``per_block`` bytes
-    a block holds at its peak; at most 16 blocks. On the CPU, 2 (as the
-    JAX package)."""
+    split among the ``share`` mesh entries on the device, less ``reserve``
+    bytes of per-batch scratch, over ``per_block`` bytes a block holds at
+    its peak; at most 16 blocks. On the CPU, 2 (as the JAX package)."""
     if cfg.block_batch:
         return cfg.block_batch
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
-        cap = max(1, min(16, int((0.5 * free - reserve) // per_block)))
+        cap = max(1, min(16, int((0.5 * free / share - reserve)
+                                 // per_block)))
     else:
         cap = 2
     return min(cap, nblocks)
@@ -254,28 +258,53 @@ def fill_host_band(x, y, v, cfg: DetectionConfig, band_shape, n: int, *,
     return band
 
 
-def normalized_band(x, y, v, cfg: DetectionConfig, band_shape, n: int,
-                    device: torch.device, *, normalize: bool, exact: bool):
-    """ONE host fill and ONE (possibly two-slab) H2D of a chromosome's
-    band, normalized by the JAX package's rule
-    (``mustache_tpu/pipeline.py:360-420``): on the device for the float32
-    normalize (the compact raw band, ``bandnorm.py``), else on the host
-    (:func:`fill_host_band`). Returns ``(band on the device, the plan
+def normalized_bands(x, y, v, cfg: DetectionConfig, band_shape, n: int,
+                     runner: MeshRunner, *, normalize: bool, exact: bool,
+                     plan: RowShardPlan | None = None):
+    """ONE host fill of a chromosome's band, normalized by the JAX
+    package's rule (``mustache_tpu/pipeline.py:360-420``) and placed on
+    every entry of ``runner``'s mesh. The float32 normalize uploads the
+    compact raw band once (one or two H2D slabs) to the first entry, the
+    others get device copies of it, and each entry normalizes its own
+    copy (``bandnorm.py``), so every entry holds the same values as an
+    unsharded run. float64, ``exact`` and ``normalize=False`` fill the
+    band of the compute dtype on the host (:func:`fill_host_band`) and
+    upload it to each entry. With a row-shard ``plan``, the host
+    normalizes (at f32 work dtype for the float32 default) and each entry
+    receives only its slab. Returns ``(one band per entry, the plan
     line's account of what went up)``."""
-    if normalize and not exact and cfg.precision == "float32":
-        upload = stream_band_to_device(x, y, v, band_shape, device)
+    mode = ("exact" if exact else "fast") if normalize else "off"
+    if plan is None and normalize and not exact and cfg.precision == "float32":
+        upload = stream_band_to_device(x, y, v, band_shape, runner.devices[0])
         exc = (None if upload.exceptions is None
                else pad_exceptions(upload.exceptions, band_shape[0]))
-        band, _ = normalize_band_device(upload.band, n, cfg.resolution,
-                                        cfg.distance_px, exceptions=exc,
-                                        packed4=upload.packed4)
-        return band, upload.describe()
+        bands = [normalize_band_device(raw, n, cfg.resolution,
+                                       cfg.distance_px, exceptions=exc,
+                                       packed4=upload.packed4)[0]
+                 for raw in runner.place_band(upload.band)]
+        return bands, upload.describe()
     host = fill_host_band(x, y, v, cfg, band_shape, n, normalize=normalize,
                           exact=exact)
-    mode = ("exact" if exact else "fast") if normalize else "off"
-    return (upload_band(host, device),
-            f"band={host.dtype.name} bytes={host.nbytes} "
-            f"host_normalize={mode}")
+    sent = f"band={host.dtype.name} bytes={host.nbytes} host_normalize={mode}"
+    if plan is not None:
+        return (runner.place_band_rowshard(host, plan),
+                f"{sent} slab_rows={plan.slab_rows}")
+    return runner.place_band(host), sent
+
+
+def local_runner(device) -> MeshRunner:
+    """The runner of an unsharded run: a one-entry mesh of ``device`` (the
+    card unless ``device="cpu"``; raises without CUDA)."""
+    return MeshRunner(make_mesh(devices=[resolve_device(device)]))
+
+
+def describe_runner(runner: MeshRunner) -> str:
+    """The plan line's account of the devices: ``device=cpu`` for one
+    entry, else the mesh's entries and placement."""
+    devs = ",".join(str(d) for d in runner.devices)
+    if runner.nb == 1 and runner.band_placement == "replicate":
+        return f"device={devs}"
+    return f"mesh={runner.nb} placement={runner.band_placement} device={devs}"
 
 
 def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
@@ -283,17 +312,16 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
                      device=None, log=None) -> list[Loop]:
     """Loop calls for one intra-chromosomal COO map (bin coordinates) on
     ``device``: the card by default; ``device="cpu"`` runs the kernel
-    route's plain PyTorch version. ``normalize=False`` detects on the raw
-    values; ``exact_normalize`` takes the reference's summation order in
-    the host normalize. Sharded runs raise ``NotImplementedError`` before
-    the device is resolved, so on any host. ``x``, ``y``, ``v`` are not
+    route's plain PyTorch version. ``runner``: a ``sharding.MeshRunner``
+    that splits the blocks over its mesh's devices (``device`` is then not
+    read); its replicate placement gives the unsharded run's rows, its
+    row-shard placement normalizes on the host. ``normalize=False``
+    detects on the raw values; ``exact_normalize`` takes the reference's
+    summation order in the host normalize. ``x``, ``y``, ``v`` are not
     modified. ``log``: optional callable taking one message string."""
-    if runner is not None:
-        raise NotImplementedError(
-            "runner: sharded runs not ported yet (ROADMAP Queue 1, "
-            "sharding.py)")
     route = resolve_route(cfg)
-    dev = resolve_device(device)
+    if runner is None:
+        runner = local_runner(device)
     if len(v) == 0:
         return []
     x = np.ascontiguousarray(x, dtype=np.int64)
@@ -305,16 +333,20 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
     # blocks are ALWAYS chunk x chunk: when n <= chunk the reference still
     # densifies into a chunk x chunk zero-padded matrix (mustache.py:923)
     width = cfg.chunk_size
-    detector = build_detector(cfg, width, device=dev)
-
-    # rows ride the JAX package's bucket ladder (pad rows are inert)
-    band_shape = (bucket_rows(max(n, width)), band_width(width, d_px))
-    band, sent = normalized_band(x, y, v, cfg, band_shape, n, dev,
-                                 normalize=normalize, exact=exact_normalize)
-
     start, end = chunk_grid(n, width, d_px)
     masks = block_mask_sizes(start, end, d_px)
     nblocks = len(start)
+    detectors = runner.per_device(
+        lambda d: build_detector(cfg, width, device=d))
+
+    # rows ride the JAX package's bucket ladder (pad rows are inert)
+    band_shape = (bucket_rows(max(n, width)), band_width(width, d_px))
+    plan = (runner.plan_rowshard(start, width)
+            if runner.band_placement == "rowshard" else None)
+    bands, sent = normalized_bands(x, y, v, cfg, band_shape, n, runner,
+                                   normalize=normalize, exact=exact_normalize,
+                                   plan=plan)
+
     if route == "kernel":
         # a block holds about 16 * n^2 bytes at its peak (the f32 dense
         # block and its sentinel copy, the f32 support mask, the bool
@@ -325,37 +357,43 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
         # the JAX package's XLA per-block size: ~45 n^2 live elements of
         # the compute dtype through the ladder (mustache_tpu/pipeline.py:
         # 274-278)
-        per_block = 45 * width * width * band.element_size()
-    B = _batch_size(cfg, nblocks, dev, per_block=per_block)
+        per_block = 45 * width * width * bands[0].element_size()
+    Bl = runner.local_batch(cfg, nblocks, per_block)
     if log is not None:
-        log(f"n={n} blocks={nblocks} of {width}^2 batch={B} device={dev} "
-            f"route={route} precision={cfg.precision} {sent}")
+        log(f"n={n} blocks={nblocks} of {width}^2 batch={runner.nb * Bl} "
+            f"{describe_runner(runner)} route={route} "
+            f"precision={cfg.precision} {sent}")
 
-    def run(det, idxs) -> np.ndarray:
-        # one packed D2H per batch
-        return det.fn_band_packed(band, [start[i] for i in idxs]).cpu().numpy()
+    def rerun_block(k, s, cap):
+        """Re-detect the block at local start ``s`` of entry k with a
+        larger candidate capacity, on that entry's band or slab."""
+        det = build_detector(cfg, width, device=runner.devices[k],
+                             max_candidates=cap)
+        row = det.fn_band_packed(bands[k], [s]).cpu().numpy()[0]
+        return unpack_block(det.out_spec, row)
 
-    def rerun_block(i, cap):
-        """Re-detect block i with a larger candidate capacity."""
-        det = build_detector(cfg, width, device=dev, max_candidates=cap)
-        return unpack_block(det.out_spec, run(det, [i])[0])
-
-    loops: list[Loop] = []
-    for b0 in range(0, nblocks, B):
-        idxs = list(range(b0, min(b0 + B, nblocks)))
-        packed = run(detector, idxs)
-        for bi, i in enumerate(idxs):
+    if plan is not None:
+        launches, run = plan.launches(Bl), runner.run_rowshard
+    else:
+        launches, run = runner.replicated_launches(start, Bl), runner.run
+    spec = detectors[0].out_spec
+    # rows tagged by block index: entries return their blocks
+    # entry-major, so block order is restored by a stable sort at the end
+    tagged: list[tuple[int, Loop]] = []
+    for idxs, sl in launches:
+        for i, k, s, row in run(detectors, bands, idxs, sl):
             block_out = _maybe_regrow(
-                unpack_block(detector.out_spec, packed[bi]), cfg,
-                lambda cap, i=i: rerun_block(i, cap))
+                unpack_block(spec, row), cfg,
+                lambda cap, k=k, s=s: rerun_block(k, s, cap))
             rows = finish_block(block_out, block_index=i, start=start[i],
-                                cfg=cfg, spec=detector.spec)
+                                cfg=cfg, spec=detectors[0].spec)
             mask = masks[i]
             for r in rows:
                 if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
-                    loops.append(Loop(int(r[0]), int(r[1]), float(r[2]),
-                                      float(r[3])))
-    return loops
+                    tagged.append((i, Loop(int(r[0]), int(r[1]),
+                                           float(r[2]), float(r[3]))))
+    tagged.sort(key=lambda t: t[0])
+    return [lp for _, lp in tagged]
 
 
 def _maybe_regrow(block_out: dict, cfg: DetectionConfig, rerun) -> dict:

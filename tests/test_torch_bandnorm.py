@@ -11,6 +11,7 @@ from mustache_tpu.detect import band_width
 from mustache_tpu_torch.bandnorm import bucket_rows, normalize_band_device
 from mustache_tpu_torch.pipeline import fill_raw_band
 from synthetic import synthetic_hic
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 
 def _raw_band(x, y, v, rows, Dl, dtype):

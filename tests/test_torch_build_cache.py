@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 
 from mustache_tpu_torch.kernels import build
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 
 @pytest.fixture
@@ -48,3 +49,31 @@ def test_no_writable_directory_raises(paths, monkeypatch):
     monkeypatch.setenv("HOME", str(paths["tmp"] / "file"))
     with pytest.raises(RuntimeError, match=build.BUILD_DIR_ENV):
         build.build_dir()
+
+
+def test_concurrent_builds_compile_once(tmp_path, monkeypatch):
+    """Builders that share the cache (several engine processes on one
+    host, here threads with their own lock descriptors) compile a source
+    once: the others wait on the file lock and get the same library; no
+    temporary file is left."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    src = tmp_path / "tiny.cpp"
+    src.write_text('extern "C" int mtt_tiny() { return 7; }\n')
+    monkeypatch.setenv(build.BUILD_DIR_ENV, str(tmp_path / "cache"))
+    calls = []
+    real = build._command
+
+    def counting(s, out):
+        calls.append(out)
+        return real(s, out)
+
+    monkeypatch.setattr(build, "_command", counting)
+    with ThreadPoolExecutor(4) as ex:
+        got = list(ex.map(lambda _: build.build("tiny", src), range(4)))
+    assert len(set(got)) == 1 and len(calls) == 1
+    assert ctypes.CDLL(str(got[0])).mtt_tiny() == 7
+    left = sorted(p.name for p in (tmp_path / "cache").iterdir())
+    assert left == sorted([got[0].name, got[0].with_suffix(".log").name,
+                           got[0].with_suffix(".lock").name])

@@ -13,6 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 
 def test_exits_nonzero_without_cuda():
@@ -193,6 +194,7 @@ def test_diff_tie_reads_the_port_block():
     from mustache_tpu_torch.diff import (
         _diff_bands, _finish_map, build_diff_detector,
     )
+    from mustache_tpu_torch.pipeline import local_runner
     from synthetic import synthetic_hic
 
     x1, y1, v1, _ = synthetic_hic(900, 100, seed=62, n_loops=15)
@@ -200,7 +202,8 @@ def test_diff_tie_reads_the_port_block():
     cfg = DetectionConfig(resolution=5000, distance_bp=500_000, pt=0.2,
                           st=0.6, pt2=0.2)
     cpu = torch.device("cpu")
-    (b1, b2), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg, cpu)
+    ((b1,), (b2,)), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg,
+                                       local_runner(cpu))
     det = build_diff_detector(cfg, cfg.chunk_size, device=cpu)
     packed = det.fn_band_packed(b1, b2, [0])         # the one block
     calls = []
@@ -365,3 +368,37 @@ def test_anchor_census():
     assert got == {"anchors": 4, "recovered": 2, "missed": 2,
                    "missed_at_a_cut": 1, "rows_near_no_anchor": 2,
                    "row_pairs_within_3": 1}
+
+
+def test_phase10_q_distance_and_rowshard_golden():
+    """Phase 10's row check: keys in order or a failure, else the largest
+    relative q distance; and the JAX rowshard golden reads as phase 4's
+    golden does, within rtol 5e-3 of it on the same rows."""
+    key, q = (lambda r: r[:2]), (lambda r: r[2])
+    base = [(1, 2, 0.01), (3, 4, 0.02)]
+    assert chip_smoke.q_distance(base, base, key, q) == 0.0
+    moved = [(1, 2, 0.0101), (3, 4, 0.02)]
+    assert chip_smoke.q_distance(moved, base, key, q) == pytest.approx(0.01)
+    with pytest.raises(SystemExit):
+        chip_smoke.q_distance(base[:1], base, key, q)
+    header, rs = chip_smoke.read_tsv(chip_smoke.GOLDEN_ROWSHARD)
+    _, golden = chip_smoke.read_tsv(chip_smoke.GOLDEN)
+    assert header.startswith("BIN1_CHR") and len(rs) > 250
+    common = {tuple(r[:6]): r for r in golden}
+    shared = [(r, common[tuple(r[:6])]) for r in rs if tuple(r[:6]) in common]
+    assert len(shared) >= len(rs) - 2
+    for r, g in shared:
+        assert r[7] == g[7]
+        assert float(r[6]) == pytest.approx(float(g[6]),
+                                            rel=chip_smoke.RTOL_ROWSHARD)
+
+
+def test_phase10_two_process_cli_stops_its_processes(tmp_path):
+    """The two-process launcher returns each process's exit code, wall
+    and output; here, without a card, both stop at once with an error."""
+    rcs, walls, outs = chip_smoke.two_process_cli(
+        str(tmp_path / "missing.hic"), str(tmp_path / "o.tsv"),
+        {"CUDA_VISIBLE_DEVICES": ""})
+    assert rcs == [1, 1] and len(walls) == 2 and walls[0] <= walls[1]
+    assert all("cuda" in o.lower() for o in outs)
+    assert chip_smoke.CLI3[0][0] == "c0" and len(chip_smoke.CLI3) == 3

@@ -2,9 +2,11 @@
 package's CLI on the same files: rows with anchors and scales exact and q
 within rtol 2e-4 (the f32 tolerance of the port's other parity tests),
 plus the flows of tests/test_cli.py (missing file, bad resolution, text
-without -ch, prefetch, ingest faults and resume, JSON log) and the modes
-that raise because they are not ported yet. The JAX side runs its BH in
-exact sort mode, the port's only mode."""
+without -ch, prefetch, ingest faults and resume, JSON log) and the
+sharding flags. The JAX CLI's output on these files is the committed
+golden ``tests/data/torch_port_cpu_f32_golden.json`` (``tools/
+make_torch_golden.py --slice cpu_f32``: the JAX CLI run as the JAX
+package's tests run it, BH in exact sort mode, the port's only mode)."""
 
 import json
 import os
@@ -15,8 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-import mustache_tpu.detect as jdetect
-from mustache_tpu.cli import main as jax_main
+import torch_port_cases as C
 from mustache_tpu_torch import faults
 from mustache_tpu_torch.cli import main, parse_args
 from hic_writer import write_hic
@@ -25,29 +26,38 @@ from synthetic import synthetic_hic
 RES = 5000
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--engine-platform", "cpu"]
-FLAGS = ["-r", "5kb", "-d", "750kb", "-pt", "0.2", "-st", "0.6"]
-
-
-def _write_text(path, chroms):
-    with open(path, "w") as fh:
-        for chrom, (x, y, v) in chroms.items():
-            for a, b, c in zip(x, y, v):
-                fh.write(f"{chrom}\t{a * RES}\t{chrom}\t{b * RES}\t{c}\n")
-    return str(path)
+FLAGS = C.F32_CLI_FLAGS
+TWO = ["-ch", "20", "21"]
 
 
 @pytest.fixture(scope="module")
 def two_chroms(tmp_path_factory):
+    """chr20 and chr21 (one 2000^2 block each) as one text file."""
     tmp = tmp_path_factory.mktemp("tcli")
-    chroms = {}
-    for chrom, seed in (("chr20", 7), ("chr21", 8)):
-        x, y, v, _ = synthetic_hic(1200, 150, seed=seed, n_loops=20)
-        chroms[chrom] = (x, y, v)
-    return _write_text(tmp / "two.txt", chroms)
+    return C.write_text(tmp / "two.txt", C.F32_CLI_CHROMS)
+
+
+@pytest.fixture(scope="module")
+def two_run(two_chroms, tmp_path_factory):
+    """The port's CLI on both chromosomes, once for the module: its TSV."""
+    out = str(tmp_path_factory.mktemp("tcli_run") / "t.tsv")
+    assert main(["-f", two_chroms, "-o", out] + TWO + FLAGS + CPU) == 0
+    return out
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return C.load_golden(C.GOLDEN_F32)
 
 
 def _rows(path):
     lines = open(path).read().splitlines()
+    assert lines[0].startswith("BIN1_CHR\tBIN1_START")
+    return [ln.split("\t") for ln in lines[1:]]
+
+
+def _text_rows(text):
+    lines = text.splitlines()
     assert lines[0].startswith("BIN1_CHR\tBIN1_START")
     return [ln.split("\t") for ln in lines[1:]]
 
@@ -58,11 +68,6 @@ def _assert_rows_match(got, want):
                                [float(r[6]) for r in want], rtol=2e-4)
 
 
-def _jax_cli(argv, monkeypatch):
-    monkeypatch.setattr(jdetect, "_BH_MODE", "sort")
-    assert jax_main(argv + ["--engine-platform", "cpu"]) == 0
-
-
 def test_parse_args_defaults():
     a = parse_args(["-f", "x.txt", "-r", "5kb", "-o", "out.tsv"])
     assert a.pt == 0.2 and a.st == 0.88 and a.s_z == 1.6
@@ -70,39 +75,33 @@ def test_parse_args_defaults():
     assert a.chromosome == "n" and a.platform == "" and a.precision == "float32"
 
 
-def test_cli_matches_jax_cli(two_chroms, tmp_path, monkeypatch):
-    out, ref = str(tmp_path / "t.tsv"), str(tmp_path / "j.tsv")
-    argv = ["-f", two_chroms, "-ch", "20", "21"] + FLAGS
-    assert main(argv + ["-o", out] + CPU) == 0
-    _jax_cli(argv + ["-o", ref], monkeypatch)
-    got, want = _rows(out), _rows(ref)
+def test_cli_matches_jax_cli(two_run, golden):
+    got, want = _rows(two_run), _text_rows(golden["cli_text"])
     assert len(want) > 5 and {r[0] for r in want} == {"20", "21"}
     _assert_rows_match(got, want)
 
 
-def test_cli_hic_matches_jax_cli(tmp_path, monkeypatch):
+def test_cli_hic_matches_jax_cli(tmp_path, golden):
     """.hic input with chromosome discovery (no -ch) and a KR vector."""
-    x, y, v, _ = synthetic_hic(1000, 150, seed=12, n_loops=15)
-    kr = np.ones(1000)
-    kr[::97] = 2.0
+    (nb, d_px), kw = C.F32_CLI_HIC
+    x, y, v, _ = synthetic_hic(nb, d_px, **kw)
     path = str(tmp_path / "m.hic")
-    write_hic(path, [("chr21", 1000 * RES)], RES, {"chr21": (x, y, v)},
-              version=8, norms={("KR", "chr21"): kr})
-    out, ref = str(tmp_path / "t.tsv"), str(tmp_path / "j.tsv")
+    write_hic(path, [("chr21", nb * RES)], RES, {"chr21": (x, y, v)},
+              version=8, norms={("KR", "chr21"): C.kr_vector(nb)})
+    out = str(tmp_path / "t.tsv")
     assert main(["-f", path, "-o", out] + FLAGS + CPU) == 0
-    _jax_cli(["-f", path, "-o", ref] + FLAGS, monkeypatch)
-    got, want = _rows(out), _rows(ref)
+    got, want = _rows(out), _text_rows(golden["cli_hic"])
     assert len(want) > 3 and want[0][0] == "chr21"
     _assert_rows_match(got, want)
 
 
-def test_cli_prefetch_matches_sequential(two_chroms, tmp_path):
-    outs = []
-    for extra in ([], ["--engine-no-prefetch"]):
-        out = str(tmp_path / f"loops{len(extra)}.tsv")
-        assert main(["-f", two_chroms, "-ch", "20", "21", "-o", out]
-                    + FLAGS + CPU + extra) == 0
-        outs.append(open(out).read())
+def test_cli_prefetch_matches_sequential(two_chroms, two_run, tmp_path):
+    """The module's run (prefetch on: chr21's ingest overlaps chr20's
+    detection) against a run without the lookahead."""
+    out = str(tmp_path / "loops1.tsv")
+    assert main(["-f", two_chroms, "-o", out, "--engine-no-prefetch"]
+                + TWO + FLAGS + CPU) == 0
+    outs = [open(two_run).read(), open(out).read()]
     assert outs[0] == outs[1] and len(outs[0].splitlines()) > 2
 
 
@@ -127,13 +126,11 @@ def test_cli_text_requires_chromosome(two_chroms, tmp_path, capsys):
     assert "chromosome name" in capsys.readouterr().out
 
 
-def test_ingest_fault_then_resume(two_chroms, tmp_path):
+def test_ingest_fault_then_resume(two_chroms, two_run, tmp_path):
     """A fault at chr21's ingest (no retries) fails that unit only; an
     --engine-resume rerun redoes exactly it and gives the clean run's
-    TSV."""
-    clean = str(tmp_path / "clean.tsv")
-    assert main(["-f", two_chroms, "-ch", "20", "21", "-o", clean]
-                + FLAGS + CPU) == 0
+    TSV (the module's run)."""
+    clean = two_run
     out = str(tmp_path / "o.tsv")
     argv = ["-f", two_chroms, "-ch", "20", "21", "-o", out, "--engine-resume",
             "--engine-ingest-retries", "0"] + FLAGS + CPU
@@ -192,17 +189,24 @@ def test_profile_dir_writes_a_trace(two_chroms, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--engine-mesh", "block"], "sharding"),
-    (["--engine-mesh", "rowshard"], "sharding"),
-    (["--engine-nprocs", "2"], "sharding"),
-    (["--engine-coordinator", "localhost:1234"], "sharding"),
+    (["--engine-mesh", "block"], "replicate"),
+    (["--engine-mesh", "rowshard"], "rowshard"),
+    (["--engine-nprocs", "1", "--engine-coordinator", "localhost:1234"],
+     "unsharded"),
+    (["--engine-nprocs", "2"], "coordinator"),
     (["-ch2", "20"], "inter"),
 ])
-def test_unported_modes_raise(two_chroms, tmp_path, capsys, extra, match):
-    """The sharding modes raise ``NotImplementedError`` before any work.
-    The inter case (``-ch2`` != ``-ch``) is ported: from a text file it
-    prints the reference's gate message and records the pair as a failed
-    unit at stage "gate" (exit 1, header-only TSV), as the JAX CLI does."""
+def test_unported_modes_raise(two_run, two_chroms, tmp_path, capsys, extra,
+                              match):
+    """The sharding flags are ported: ``--engine-mesh block`` (a one-entry
+    mesh of the CPU) and a one-process run with a coordinator give the
+    unsharded rows exactly; ``rowshard`` normalizes on the host, so its
+    rows hold anchors and scales exact and q within the JAX dryrun's rtol
+    5e-3 (``__graft_entry__.py``); ``--engine-nprocs 2`` without a
+    coordinator stops before any work. The inter case (``-ch2`` != ``-ch``)
+    is ported: from a text file it prints the reference's gate message and
+    records the pair as a failed unit at stage "gate" (exit 1, header-only
+    TSV), as the JAX CLI does."""
     out = tmp_path / "o.tsv"
     argv = ["-f", two_chroms, "-ch", "21", "-o", str(out)] + FLAGS + CPU \
         + extra
@@ -217,9 +221,29 @@ def test_unported_modes_raise(two_chroms, tmp_path, capsys, extra, match):
             [("21__x__20", "gate")]
         assert _rows(out) == []
         return
-    with pytest.raises(NotImplementedError, match=match):
-        main(argv)
-    assert not out.exists()
+    if match == "coordinator":
+        with pytest.raises(ValueError, match=match):
+            main(argv)
+        assert not out.exists()
+        return
+    assert main(argv + ["--engine-json-log"]) == 0
+    events = [json.loads(ln) for ln in capsys.readouterr().err.splitlines()
+              if ln.startswith("{")]
+    mesh = [e for e in events if e["event"] == "mesh"]
+    want = [r for r in _rows(two_run) if r[0] == "21"]
+    got = _rows(out)
+    assert len(want) > 2
+    if match == "unsharded":
+        assert not mesh and got == want
+        return
+    assert [(e["devices"], e["placement"]) for e in mesh] == \
+        [(["cpu"], match)]
+    if match == "replicate":
+        assert got == want
+    else:
+        assert [r[:6] + r[7:] for r in got] == [r[:6] + r[7:] for r in want]
+        np.testing.assert_allclose([float(r[6]) for r in got],
+                                   [float(r[6]) for r in want], rtol=5e-3)
 
 
 def test_no_platform_flag_means_the_card(two_chroms, tmp_path, monkeypatch):
@@ -240,6 +264,7 @@ def test_python_dash_m(two_chroms, tmp_path):
     when asked, an error without CUDA otherwise."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
+    env.update(C.SUBPROCESS_ENV)
     out = tmp_path / "o.tsv"
     base = [sys.executable, "-m", "mustache_tpu_torch", "-f", two_chroms,
             "-ch", "21", "-o", str(out)] + FLAGS

@@ -18,6 +18,7 @@ from mustache_tpu_torch import bandnorm as tbandnorm
 from mustache_tpu_torch import pipeline as tpipeline
 from mustache_tpu_torch.config import DetectionConfig
 from synthetic import synthetic_hic
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 CPU = torch.device("cpu")
 

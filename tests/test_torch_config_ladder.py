@@ -10,6 +10,7 @@ import mustache_tpu.config as jcfg
 import mustache_tpu.scalespace as jss
 import mustache_tpu_torch.config as tcfg
 import mustache_tpu_torch.scalespace as tss
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 
 def test_detection_config_fields_and_defaults():

@@ -24,6 +24,7 @@ from mustache_tpu_torch.pipeline import fill_raw_band
 from mustache_tpu_torch.scalespace import ladder_tensor
 from oracle import bh_fdr
 from synthetic import synthetic_hic
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 CPU = torch.device("cpu")
 

@@ -12,7 +12,10 @@ CPU. The JAX side runs its BH in exact "sort" mode (the port's only mode).
   ``fn_band`` in interpret mode, to the tolerances of
   tests/test_pallas.py:196-230;
 * the whole chromosome: ``detect_diff_loops_coo`` rows with bins, scales
-  and tags exact and q within rtol 2e-4.
+  and tags exact and q within rtol 2e-4 of the JAX package's rows on the
+  same slice, the committed golden ``tests/data/
+  torch_port_cpu_f32_golden.json`` (``tools/make_torch_golden.py --slice
+  cpu_f32``).
 """
 
 import jax
@@ -23,9 +26,7 @@ import pytest
 import torch
 
 import mustache_tpu.detect as jdetect
-from mustache_tpu.config import DetectionConfig as JaxConfig
 from mustache_tpu.diff import _build_diff_detector_cached
-from mustache_tpu.diff import detect_diff_loops_coo as jax_diff
 from mustache_tpu.config import clamp_distance_filter as jax_clamp
 from mustache_tpu_torch import DetectionConfig, detect_diff_loops_coo, find_diff_loops
 from mustache_tpu_torch import detect as tdetect
@@ -33,11 +34,11 @@ from mustache_tpu_torch import diff as tdiff
 from mustache_tpu_torch.bandnorm import bucket_rows, normalize_band_device
 from mustache_tpu_torch.pipeline import fill_raw_band
 from mustache_tpu_torch.scalespace import build_ladder, ladder_tensor
+from mustache_tpu_torch.sharding import make_mesh, make_runner
+import torch_port_cases as C
 from synthetic import synthetic_hic
 
 CPU = torch.device("cpu")
-# the slice: 3 blocks of 2000^2 (chunk_size) at d_px 120, two conditions
-SLICE = dict(n=4000, d_px=120, seed=71)
 
 
 @pytest.fixture(autouse=True)
@@ -253,25 +254,17 @@ def test_stacked_batch_matches_jax_fused():
 
 @pytest.fixture(scope="module")
 def slice_rows():
-    """The slice through both packages: two conditions of 4000 bins,
-    3 blocks, batches of 2 (one full batch, one of a single block)."""
-    n, d_px, seed = SLICE["n"], SLICE["d_px"], SLICE["seed"]
-    x1, y1, v1, _ = synthetic_hic(n, d_px, seed=seed, n_loops=40)
-    x2, y2, v2, _ = synthetic_hic(n, d_px, seed=seed + 1, n_loops=40)
-    kw = dict(resolution=5000, distance_bp=d_px * 5000, pt=0.1, st=0.8,
-              pt2=0.1, block_batch=2)
-    inputs = tuple(a.copy() for a in (x1, y1, v1, x2, y2, v2))
+    """The slice through the port: two conditions of 4000 bins, 3 blocks,
+    batches of 2 (one full batch, one of a single block); the JAX
+    package's rows on it from the golden."""
+    maps = C.diff_slice_maps()
+    inputs = tuple(a.copy() for a in maps)
     logs = []
-    got = detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, DetectionConfig(**kw),
+    got = detect_diff_loops_coo(*maps, DetectionConfig(**C.F32_DIFF_KW),
                                 device="cpu", log=logs.append)
-    for a, b in zip((x1, y1, v1, x2, y2, v2), inputs):
+    for a, b in zip(maps, inputs):
         assert np.array_equal(a, b)               # inputs untouched
-    mode, jdetect._BH_MODE = jdetect._BH_MODE, "sort"
-    try:
-        want = jax_diff(x1, y1, v1.copy(), x2, y2, v2.copy(),
-                        JaxConfig(precision="float32", **kw))
-    finally:
-        jdetect._BH_MODE = mode
+    want = [tuple(r) for r in C.load_golden(C.GOLDEN_F32)["diff_slice"]]
     return got, want, logs
 
 
@@ -350,17 +343,23 @@ def test_no_device_means_the_card(monkeypatch):
 
 @pytest.mark.parametrize("device", [None, "cpu", "cuda"])
 def test_unported_modes_raise(device, monkeypatch):
-    """Sharded runs, still unported, say so on any host and for any device,
-    before the device is resolved. float64, exact_normalize and
+    """Sharded runs are ported: a runner over a mesh of CPU entries is
+    accepted whatever the device (the mesh names the devices), and a mesh
+    of the card raises without CUDA (the runs themselves:
+    tests/test_torch_sharding.py). float64, exact_normalize and
     normalize=False are ported: they are accepted, so without CUDA a card
     device raises for want of the card, and on the CPU they return (their
     parity with the JAX package: tests/test_torch_f64_diff.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, y, v, _ = synthetic_hic(300, 40, seed=1, n_loops=2)
     cfg = DetectionConfig(resolution=5000, distance_bp=200_000)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        detect_diff_loops_coo(x, y, v, x, y, v, cfg, runner=object(),
-                              device=device)
+    e0 = np.zeros(0, np.int64)
+    m0 = (e0, e0, e0.astype(float))
+    for placement in ("replicate", "rowshard"):
+        runner = make_runner(make_mesh(devices=["cpu"] * 2), placement)
+        assert detect_diff_loops_coo(*m0, *m0, cfg, runner=runner, device=device) == []
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh(devices=["cuda:0"])
     # on the CPU an empty map shows the mode accepted without a run
     e = np.zeros(0, np.int64)
     m = (e, e, e.astype(float)) if device == "cpu" else (x, y, v)

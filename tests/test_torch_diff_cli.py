@@ -3,8 +3,10 @@ against the JAX package's (``mustache_tpu.diff_cli``) on the same files:
 all four output files (``.loop1 .diffloop1 .loop2 .diffloop2``) with the
 same header and rows, anchors and scales exact and q within rtol 2e-4; a
 resume after an injected ingest fault; the error exits; the JSON log; and
-the modes that raise because they are not ported yet. The JAX side runs
-its BH in exact sort mode (the port's only mode) on one device."""
+the sharding flags. The JAX diff CLI's four files on these inputs are the
+committed golden ``tests/data/torch_port_cpu_f32_golden.json``
+(``tools/make_torch_golden.py --slice cpu_f32``: BH in exact sort mode,
+the port's only mode, on one device)."""
 
 import contextlib
 import io
@@ -17,8 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-import mustache_tpu.detect as jdetect
-from mustache_tpu.diff_cli import main as jax_main
+import torch_port_cases as C
 from mustache_tpu_torch import faults
 from mustache_tpu_torch.diff_cli import SUFFIXES, main, parse_args
 from hic_writer import write_hic
@@ -26,17 +27,20 @@ from synthetic import synthetic_hic
 
 RES = 5000
 CPU = ["--engine-platform", "cpu"]
-FLAGS = ["-r", "5kb", "-d", "700kb", "-pt", "0.2", "-st", "0.6", "-pt2",
-         "0.2"]
+FLAGS = C.F32_DIFF_CLI_FLAGS
 
 
-def _jax_cli(argv):
-    mode, jdetect._BH_MODE = jdetect._BH_MODE, "sort"
-    try:
-        assert jax_main(argv + ["--engine-platform", "cpu",
-                                "--engine-mesh", "off"]) == 0
-    finally:
-        jdetect._BH_MODE = mode
+@pytest.fixture(scope="module")
+def golden():
+    return C.load_golden(C.GOLDEN_F32)
+
+
+def _write_golden(files: dict, prefix: str) -> str:
+    """The golden's four files written as ``prefix`` + suffix."""
+    for sfx, text in files.items():
+        with open(prefix + sfx, "w") as fh:
+            fh.write(text)
+    return prefix
 
 
 def _port_cli(argv):
@@ -49,25 +53,18 @@ def _port_cli(argv):
 
 
 @pytest.fixture(scope="module")
-def text_runs(tmp_path_factory):
-    """Two conditions as text files (chr20 and chr21 each), through the
-    port's CLI and the JAX CLI."""
+def text_runs(tmp_path_factory, golden):
+    """Two conditions as text files (chr20 and chr21 each, one 2000^2
+    block each), through the port's CLI; the JAX CLI's files from the
+    golden."""
     tmp = tmp_path_factory.mktemp("tdiffcli")
-    paths = []
-    for cond, base_seed in (("c1", 62), ("c2", 82)):
-        path = tmp / f"{cond}.txt"
-        with open(path, "w") as fh:
-            for chrom, off in (("chr20", 0), ("chr21", 1)):
-                x, y, v, _ = synthetic_hic(1100, 140, seed=base_seed + off,
-                                           n_loops=18)
-                for a, b, c in zip(x, y, v):
-                    fh.write(f"{chrom}\t{a*RES}\t{chrom}\t{b*RES}\t{c}\n")
-        paths.append(str(path))
+    paths = [C.write_text(tmp / f"{cond}.txt", chroms)
+             for cond, chroms in C.F32_DIFF_CLI_CONDS.items()]
     argv = ["-f1", paths[0], "-f2", paths[1], "-ch", "20", "21"] + FLAGS
-    port, ref = str(tmp / "port"), str(tmp / "jax")
+    port = str(tmp / "port")
     rc, events = _port_cli(argv + ["-o", port])
     assert rc == 0
-    _jax_cli(argv + ["-o", ref])
+    ref = _write_golden(golden["diff_cli_text"], str(tmp / "jax"))
     return dict(paths=paths, argv=argv, port=port, ref=ref, events=events)
 
 
@@ -110,21 +107,20 @@ def test_diff_cli_json_log(text_runs):
     assert tp["mb"] == pytest.approx(2 * 1100 * RES / 1e6, abs=0.02)
 
 
-def test_diff_cli_hic_matches_jax_cli(tmp_path):
+def test_diff_cli_hic_matches_jax_cli(tmp_path, golden):
     """Two v8 .hic files, chromosome discovery (no -ch), a KR vector."""
+    (nb, d_px), _ = C.F32_CLI_HIC
     paths = []
     for cond, seed in (("a", 12), ("b", 13)):
-        x, y, v, _ = synthetic_hic(1000, 150, seed=seed, n_loops=15)
-        kr = np.ones(1000)
-        kr[::97] = 2.0
+        x, y, v, _ = synthetic_hic(nb, d_px, seed=seed, n_loops=15)
         paths.append(str(tmp_path / f"{cond}.hic"))
-        write_hic(paths[-1], [("chr21", 1000 * RES)], RES,
+        write_hic(paths[-1], [("chr21", nb * RES)], RES,
                   {"chr21": (x, y, v)}, version=8,
-                  norms={("KR", "chr21"): kr})
+                  norms={("KR", "chr21"): C.kr_vector(nb)})
     argv = ["-f1", paths[0], "-f2", paths[1]] + FLAGS
-    port, ref = str(tmp_path / "t"), str(tmp_path / "j")
+    port = str(tmp_path / "t")
     assert _port_cli(argv + ["-o", port])[0] == 0
-    _jax_cli(argv + ["-o", ref])
+    ref = _write_golden(golden["diff_cli_hic"], str(tmp_path / "j"))
     _assert_files_match(port, ref)
     assert _rows(port + ".loop2")[0][0] == "chr21"
 
@@ -178,28 +174,50 @@ def test_diff_cli_bad_resolution(text_runs, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--engine-mesh", "block"], "sharding"),
-    (["--engine-mesh", "rowshard"], "sharding"),
-    (["--engine-nprocs", "2"], "sharding"),
-    (["--engine-coordinator", "localhost:1234"], "sharding"),
+    (["--engine-mesh", "block"], "replicate"),
+    (["--engine-mesh", "rowshard"], "rowshard"),
+    (["--engine-nprocs", "1", "--engine-coordinator", "localhost:1234"],
+     "unsharded"),
+    (["--engine-nprocs", "2"], "coordinator"),
     (["-ch2", "20"], "inter"),
 ])
 def test_unported_modes_raise(text_runs, tmp_path, capsys, extra, match):
-    """The sharding modes raise ``NotImplementedError`` before any work.
-    The inter case (``-ch2`` != ``-ch``) stops the run as the JAX diff CLI
-    does (``mustache_tpu/diff_cli.py:173-175``): its message, exit 1, no
-    output file."""
+    """The sharding flags are ported: ``--engine-mesh block`` (a one-entry
+    mesh of the CPU) and a one-process run with a coordinator give the
+    unsharded files exactly; ``rowshard`` normalizes on the host, so its
+    rows hold anchors, scales and files exact and q within the JAX
+    dryrun's rtol 5e-3; ``--engine-nprocs 2`` without a coordinator stops
+    before any work. The inter case (``-ch2`` != ``-ch``) stops the run as
+    the JAX diff CLI does (``mustache_tpu/diff_cli.py:173-175``): its
+    message, exit 1, no output file."""
     out = tmp_path / "o"
     argv = ["-f1", text_runs["paths"][0], "-f2", text_runs["paths"][1],
-            "-ch", "21", "-o", str(out)] + FLAGS + CPU + extra
+            "-ch", "21", "-o", str(out)] + FLAGS + extra
     if match == "inter":
-        assert main(argv) == 1
+        assert main(argv + CPU) == 1
         assert "Interchromosomal analysis is not supported." in \
             capsys.readouterr().out
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            main(argv)
-    assert not [p for p in os.listdir(tmp_path)]
+        assert not [p for p in os.listdir(tmp_path)]
+        return
+    if match == "coordinator":
+        with pytest.raises(ValueError, match=match):
+            main(argv + CPU)
+        assert not [p for p in os.listdir(tmp_path)]
+        return
+    rc, events = _port_cli(argv)
+    assert rc == 0
+    mesh = [e for e in events if e["event"] == "mesh"]
+    assert mesh == [] if match == "unsharded" else \
+        [(e["devices"], e["placement"]) for e in mesh] == [(["cpu"], match)]
+    for sfx in SUFFIXES.values():
+        want = [r for r in _rows(text_runs["port"] + sfx) if r[0] == "21"]
+        got = _rows(str(out) + sfx)
+        if match != "rowshard":
+            assert got == want, sfx
+            continue
+        assert [r[:6] + r[7:] for r in got] == [r[:6] + r[7:] for r in want]
+        np.testing.assert_allclose([float(r[6]) for r in got],
+                                   [float(r[6]) for r in want], rtol=5e-3)
 
 
 def test_no_platform_flag_means_the_card(text_runs, tmp_path, monkeypatch):

@@ -2,8 +2,8 @@
 JAX package's Pallas kernel run in interpret mode on the CPU.
 
 band_sig must be exact on the support; band_v, locs and sums agree to
-rtol 2e-4 (the f32 blur sums run in another order: cuDNN/ATen conv here,
-Toeplitz matmuls there). The CUDA kernel itself is held against the same
+rtol 2e-4 (the f32 blur sums run in another order: banded Toeplitz
+matmuls on the band here, the TPU kernel's Toeplitz matmuls there). The CUDA kernel itself is held against the same
 plain version on the card by chip_smoke.py.
 """
 
@@ -25,6 +25,7 @@ from mustache_tpu_torch.scalespace import (
     kernel_radius, ladder_tensor, radii_tensor,
 )
 from synthetic import synthetic_hic
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 
 def _sentinel_block(n, d_px, seed):

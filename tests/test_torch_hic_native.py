@@ -21,6 +21,7 @@ from mustache_tpu_torch.io.hic import HicFile, read_hic_file
 from mustache_tpu_torch.kernels import build
 from hic_writer import write_hic
 from synthetic import synthetic_hic, synthetic_inter
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 RES = 5000
 

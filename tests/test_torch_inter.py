@@ -10,7 +10,12 @@ Inter q values are tiny (log q -40 to -60), so rtol 2e-4 in q is 2e-4 in
 log q: about the distance of either f32 path from float64 (the DoG
 planes' rounding times |log p|; up to ~5e-4 on other maps of this size,
 PERF.md). The f32 judge below holds both f32 paths within 1e-3 of
-float64 in log q."""
+float64 in log q.
+
+The tile's raw outputs are held to a live JAX call; the whole grid's
+rows to the JAX package's rows on the same map at float32 and float64,
+the committed golden ``tests/data/torch_port_cpu_f32_golden.json``
+(``tools/make_torch_golden.py --slice cpu_f32``)."""
 
 import math
 
@@ -25,11 +30,11 @@ from mustache_tpu.inter import (
 )
 from mustache_tpu_torch import inter
 from mustache_tpu_torch.config import DetectionConfig
+import torch_port_cases as C
 from synthetic import synthetic_inter
 
 CPU = torch.device("cpu")
-KW = dict(resolution=5000, distance_bp=2_000_000, pt=0.1, st=0.5,
-          min_tested=5000)
+KW = C.F32_INTER_KW
 F32_LOGQ = dict(rtol=2e-4, atol=1e-4)
 F64_LOGQ = dict(rtol=1e-9, atol=0)
 
@@ -64,8 +69,17 @@ def test_normalize_inter_semantics():
 
 @pytest.fixture(scope="module")
 def grid_map():
-    x, y, v, anchors = synthetic_inter(900, 800, seed=7, n_loops=10)
+    (n1, n2), kw = C.F32_INTER_MAP
+    x, y, v, anchors = synthetic_inter(n1, n2, **kw)
     return x, y, v, anchors
+
+
+@pytest.fixture(scope="module")
+def golden():
+    """The JAX package's grid rows at float32 and float64."""
+    gold = C.load_golden(C.GOLDEN_F32)
+    return {p: gold[f"inter_grid_{p}"]
+            for p in ("float32", "float64")}
 
 
 def _tile(grid_map, dtype):
@@ -128,12 +142,12 @@ def test_tile_raw_outputs_match_jax(tile_outputs):
 
 
 @pytest.fixture(scope="module")
-def grid_rows(grid_map):
-    """The 2x2 grid (900 x 800, chunk 512): JAX f32 rows, the port's f32
-    and f64 rows."""
+def grid_rows(grid_map, golden):
+    """The 2x2 grid (900 x 800, chunk 512): JAX f32 rows (the golden), the
+    port's f32 and f64 rows."""
     x, y, v, _ = grid_map
-    jcfg, tcfg = _cfgs()
-    want = jax_detect(x, y, v.copy(), jcfg, chunk=512)
+    _, tcfg = _cfgs()
+    want = golden["float32"]
     got = inter.detect_inter_loops_coo(x, y, v.copy(), tcfg, chunk=512,
                                        device="cpu")
     got64 = inter.detect_inter_loops_coo(
@@ -162,11 +176,8 @@ def test_f32_within_bound_of_f64(grid_rows):
                                    rtol=0, atol=1e-3)
 
 
-def test_f64_rows_match_jax_f64(grid_map, grid_rows):
-    x, y, v, _ = grid_map
-    jcfg, _ = _cfgs(precision="float64")
-    _assert_rows(grid_rows[2], jax_detect(x, y, v.copy(), jcfg, chunk=512),
-                 1e-9)
+def test_f64_rows_match_jax_f64(grid_rows, golden):
+    _assert_rows(grid_rows[2], golden["float64"], 1e-9)
 
 
 def test_regrow_small_capacity(grid_map, grid_rows, monkeypatch):

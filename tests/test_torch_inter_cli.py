@@ -24,6 +24,7 @@ from mustache_tpu.cli import main as jax_main
 from mustache_tpu_torch.cli import main
 from hic_writer import write_hic
 from synthetic import synthetic_hic, synthetic_inter
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 RES = 5000
 CPU = ["--engine-platform", "cpu"]

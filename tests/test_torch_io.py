@@ -22,6 +22,7 @@ from mustache_tpu_torch.io import hicpro as thicpro
 from mustache_tpu_torch.io import text as ttext
 from hic_writer import write_hic
 from synthetic import synthetic_hic
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 RES = 5000
 

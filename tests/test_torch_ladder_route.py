@@ -25,6 +25,7 @@ from mustache_tpu_torch.ladder import band_blur
 from mustache_tpu_torch.scalespace import build_ladder
 from oracle import detect_block_oracle
 from synthetic import synthetic_hic
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 CPU = torch.device("cpu")
 

@@ -9,6 +9,7 @@ import pytest
 
 from mustache_tpu.io import native as jnative
 from mustache_tpu_torch.io import native as tn
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 
 def _coo(rows, Dl, *, seed, n=None, lam=3.0, floats=0, big8=0, big16=0,

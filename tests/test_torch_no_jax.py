@@ -1,15 +1,17 @@
 """The port never imports JAX, the JAX package, pandas or h5py: checked in
 a fresh interpreter (this test process has JAX loaded already through
-conftest.py) that imports every module of the port and runs detection
-(float32 and float64), inter-chromosomal detection, the warmup's builds,
-the CLI on the CPU from a text file and from a .hic file at float64, and
-the differential CLI on two text files. h5py
-may load only inside the .cool reader's call, which this script does not
-make."""
+conftest.py) that imports every module of the port and runs
+inter-chromosomal detection (one 512^2 tile), the warmup's builds, the
+CLI on the CPU from a text file through a one-entry mesh (float32: the
+sharded runner, one 2000^2 block) and from a .hic file at float64 (one
+block), and the differential CLI on two text files (one block each).
+h5py may load only inside the .cool reader's call, which this script does
+not make."""
 
 import os
 import subprocess
 import sys
+import torch_port_cases  # one torch thread per worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,18 +22,15 @@ import numpy as np
 import mustache_tpu_torch as mt
 import mustache_tpu_torch.__main__  # noqa: F401
 from mustache_tpu_torch import (bandnorm, cli, config, detect, device,  # noqa: F401
-                                diff, diff_cli, faults, inter, ladder,
-                                manifest, normalize, pipeline, runlog,
-                                scalespace, warmup)
+                                diff, diff_cli, dryrun, faults, inter,
+                                ladder, manifest, normalize, pipeline,
+                                runlog, scalespace, sharding, warmup)
 from mustache_tpu_torch.io import bias, chrom, cool, hic, hicpro, native, text  # noqa: F401
 from mustache_tpu_torch.kernels import build, fused_ladder  # noqa: F401
 from synthetic import synthetic_hic
 from hic_writer import write_hic
 x, y, v, _ = synthetic_hic(400, 60, seed=3, n_loops=6)
 cfg = mt.DetectionConfig(resolution=5000, distance_bp=300_000, pt=0.1, st=0.8)
-loops = mt.detect_loops_coo(x, y, v, cfg, device="cpu")
-f64 = mt.detect_loops_coo(x, y, v, cfg.with_(precision="float64"),
-                          device="cpu")
 from synthetic import synthetic_inter
 xi, yi, vi, _ = synthetic_inter(300, 200, seed=5, n_loops=4)
 inter_rows = inter.detect_inter_loops_coo(xi, yi, vi, cfg.with_(st=0.5,
@@ -44,10 +43,13 @@ with open(txt, "w") as fh:
     for a, b, c in zip(x, y, v):
         fh.write(f"chr1\t{a * 5000}\tchr1\t{b * 5000}\t{c}\n")
 write_hic(h, [("chr1", 400 * 5000)], 5000, {"chr1": (x, y, v)}, version=8)
+outs = [os.path.join(tmp, "o32.tsv"), os.path.join(tmp, "o64.tsv")]
 rcs = [cli.main(["-f", f, "-ch", "1", "-r", "5kb", "-d", "300kb", "-o",
-                 os.path.join(tmp, "o.tsv"), "-pt", "0.1", "-st", "0.8",
-                 "-norm", "NONE", "--engine-platform", "cpu"] + prec)
-       for f, prec in ((txt, []), (h, ["--engine-precision", "float64"]))]
+                 o, "-pt", "0.1", "-st", "0.8", "-norm", "NONE",
+                 "--engine-platform", "cpu"] + extra)
+       for f, o, extra in ((txt, outs[0], ["--engine-mesh", "block"]),
+                           (h, outs[1], ["--engine-precision", "float64"]))]
+loops, f64 = (open(o).read().splitlines()[1:] for o in outs)
 x2, y2, v2, _ = synthetic_hic(400, 60, seed=4, n_loops=6)
 txt2 = os.path.join(tmp, "c2.txt")
 with open(txt2, "w") as fh:
@@ -67,6 +69,7 @@ print("BAD_MODULES", bad)
 
 def test_port_imports_and_runs_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(torch_port_cases.SUBPROCESS_ENV)
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT.replace("ROOT", repr(ROOT))],
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)

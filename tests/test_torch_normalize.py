@@ -18,6 +18,7 @@ from mustache_tpu.normalize import normalize_sparse as jax_normalize
 from mustache_tpu_torch.io import native
 from mustache_tpu_torch.normalize import normalize_sparse
 from synthetic import synthetic_hic
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 # (n_bins, d_px, seed): the local regime ((n - d_px) * res > 2 Mb at
 # 5 kb) and the global one

@@ -10,7 +10,9 @@ from mustache_tpu.config import DetectionConfig as JaxConfig
 from mustache_tpu.pipeline import detect_loops_coo as jax_detect
 from mustache_tpu.pipeline import write_loops as jax_write
 from mustache_tpu_torch import DetectionConfig, detect_loops_coo, find_loops, write_loops
+from mustache_tpu_torch.sharding import make_mesh, make_runner
 from synthetic import synthetic_hic
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 KW = dict(resolution=5000, distance_bp=2_000_000, pt=0.1, st=0.8)
 
@@ -65,16 +67,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("device", [None, "cpu", "cuda"])
 def test_unported_modes_raise(device, monkeypatch):
-    """Sharded runs, still unported, say so on any host and for any device,
-    before the device is resolved. float64, exact_normalize and
+    """Sharded runs are ported: a runner over a mesh of CPU entries is
+    accepted whatever the device (the mesh names the devices), and a mesh
+    of the card raises without CUDA (the runs themselves:
+    tests/test_torch_sharding.py). float64, exact_normalize and
     normalize=False are ported: they are accepted, so without CUDA a card
     device raises for want of the card, and on the CPU they return (their
     parity with the JAX package: tests/test_torch_f64_pipeline.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, y, v, _ = synthetic_hic(300, 40, seed=1, n_loops=2)
     cfg = DetectionConfig(**KW)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        detect_loops_coo(x, y, v, cfg, runner=object(), device=device)
+    e0 = np.zeros(0, np.int64)
+    m0 = (e0, e0, e0.astype(float))
+    for placement in ("replicate", "rowshard"):
+        runner = make_runner(make_mesh(devices=["cpu"] * 2), placement)
+        assert detect_loops_coo(*m0, cfg, runner=runner, device=device) == []
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh(devices=["cuda:0"])
     # on the CPU an empty map shows the mode accepted without a run
     e = np.zeros(0, np.int64)
     m = (e, e, e.astype(float)) if device == "cpu" else (x, y, v)

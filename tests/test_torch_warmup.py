@@ -10,6 +10,7 @@ import torch
 from mustache_tpu_torch import cli, warmup
 from mustache_tpu_torch.kernels import build
 from mustache_tpu_torch.runlog import RunLog
+import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
 GXX_LIBS = {"band_fill", "normalize", "hic_decode"}
 

@@ -37,7 +37,18 @@ modes) and writes the reference-format TSV:
   ``tests/data/torch_port_inter_5kb_golden.tsv``;
 * ``cpu_f64``: the small float64 cases of ``tests/torch_port_cases.py``
   (pipelines, differential calls and both CLIs, sort-mode BH), to
-  ``tests/data/torch_port_cpu_f64_golden.json``.
+  ``tests/data/torch_port_cpu_f64_golden.json``;
+* ``cpu_f32``: the small float32 cases of ``tests/torch_port_cases.py``
+  (``F32_*``: both CLIs from text and ``.hic``, the differential slice,
+  the inter-chromosomal grid at float32 and float64, a two-block map
+  through the row-sharded runner on 4 devices), run as the JAX
+  package's tests run it (x64 on, 8 virtual CPU devices, sort-mode BH),
+  to ``tests/data/torch_port_cpu_f32_golden.json``, which also records
+  this command and the JAX version;
+* ``rowshard_5kb``: the ``5kb`` workload through the JAX row-sharded
+  runner (``make_runner(mesh, "rowshard")`` on a 4-device CPU mesh: the
+  host normalize, each device's slab), sort-mode BH, to
+  ``tests/data/torch_port_chr21_5kb_rowshard_golden.tsv``.
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--slice NAME] [--out PATH]
 """
@@ -73,6 +84,10 @@ SLICES = {
     "inter_5kb": ((9342, 10164), dict(seed=2121, n_loops=300), 5000,
                   ("chr21", "chr22"), None),
     "cpu_f64": (None, None, 5000, None, "sort"),
+    "cpu_f32": (None, None, 5000, None, "sort"),
+    "rowshard_5kb": ((9629, 400), dict(seed=2021, n_loops=300,
+                                       loop_strength=3.0),
+                     5000, "chr21", "sort"),
 }
 DIFF_SEED2 = 2022      # the diff leg's second condition (bench.py)
 OUT = {"5kb": os.path.join(ROOT, "tests", "data",
@@ -90,7 +105,14 @@ OUT = {"5kb": os.path.join(ROOT, "tests", "data",
        "inter_5kb": os.path.join(ROOT, "tests", "data",
                                  "torch_port_inter_5kb_golden.tsv"),
        "cpu_f64": os.path.join(ROOT, "tests", "data",
-                               "torch_port_cpu_f64_golden.json")}
+                               "torch_port_cpu_f64_golden.json"),
+       "cpu_f32": os.path.join(ROOT, "tests", "data",
+                               "torch_port_cpu_f32_golden.json"),
+       "rowshard_5kb": os.path.join(
+           ROOT, "tests", "data", "torch_port_chr21_5kb_rowshard_golden.tsv")}
+# slices run under the JAX package's test harness settings
+# (tests/conftest.py): x64 on and 8 virtual CPU devices
+HARNESS = ("cpu_f32", "rowshard_5kb")
 DIFF_HEADER = ("BIN1_CHR\tBIN1_START\tBIN1_END\tBIN2_CHROMOSOME\t"
                "BIN2_START\tBIN2_END\tFDR\tDETECTION_SCALE\tTAG\n")
 
@@ -165,10 +187,122 @@ def cpu_f64_golden(out):
             sfx: open(ref + sfx).read()
             for sfx in (".loop1", ".diffloop1", ".loop2", ".diffloop2")}
         print(f"diff_cli_f64 ({time.time() - t0:.1f} s)")
+    _dump(out, gold)
+
+
+def _inter_rows(rows):
+    return [[int(r[0]), int(r[1]), float(r[2]), float(r[3])] for r in rows]
+
+
+def _dump(out, gold):
     with open(out, "w") as fh:
         fh.write("{\n" + ",\n".join(
             f"{json.dumps(k)}: {json.dumps(v)}" for k, v in gold.items())
             + "\n}\n")
+
+
+def cpu_f32_golden(out):
+    """Run the JAX package on the F32_* cases of tests/torch_port_cases.py
+    and write their rows and the CLIs' output files to one JSON file."""
+    import tempfile
+
+    import jax
+
+    import torch_port_cases as C
+    from hic_writer import write_hic
+    from mustache_tpu.cli import main as cli_main
+    from mustache_tpu.config import DetectionConfig
+    from mustache_tpu.diff import detect_diff_loops_coo
+    from mustache_tpu.diff_cli import main as diff_cli_main
+    from mustache_tpu.inter import detect_inter_loops_coo
+    from mustache_tpu.pipeline import detect_loops_coo
+    from mustache_tpu.sharding import make_mesh, make_runner
+    from synthetic import synthetic_hic, synthetic_inter
+
+    cpu = ["--engine-platform", "cpu"]
+    gold = {"_command": "JAX_PLATFORMS=cpu python tools/make_torch_golden.py "
+                        "--slice cpu_f32",
+            "_jax": f"jax {jax.__version__} on {jax.default_backend()} "
+                    f"({len(jax.devices())} devices, x64 "
+                    f"{jax.config.jax_enable_x64})"}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        ref = os.path.join(tmp, "out")
+        txt = C.write_text(os.path.join(tmp, "two.txt"), C.F32_CLI_CHROMS)
+        assert cli_main(["-f", txt, "-ch", "20", "21", "-o", ref]
+                        + C.F32_CLI_FLAGS + cpu) == 0
+        gold["cli_text"] = open(ref).read()
+        (nb, d_px), kw = C.F32_CLI_HIC
+        path = os.path.join(tmp, "m.hic")
+        write_hic(path, [("chr21", nb * C.RES)], C.RES,
+                  {"chr21": synthetic_hic(nb, d_px, **kw)[:3]}, version=8,
+                  norms={("KR", "chr21"): C.kr_vector(nb)})
+        assert cli_main(["-f", path, "-o", ref] + C.F32_CLI_FLAGS + cpu) == 0
+        gold["cli_hic"] = open(ref).read()
+        print(f"cli_text, cli_hic ({time.time() - t0:.1f} s)")
+        t0 = time.time()
+        paths = [C.write_text(os.path.join(tmp, f"{c}.txt"), chroms)
+                 for c, chroms in C.F32_DIFF_CLI_CONDS.items()]
+        sfxs = (".loop1", ".diffloop1", ".loop2", ".diffloop2")
+        assert diff_cli_main(["-f1", paths[0], "-f2", paths[1], "-ch", "20",
+                              "21", "-o", ref] + C.F32_DIFF_CLI_FLAGS + cpu
+                             + ["--engine-mesh", "off"]) == 0
+        gold["diff_cli_text"] = {s: open(ref + s).read() for s in sfxs}
+        hics = []
+        for cond, seed in (("a", 12), ("b", 13)):
+            hics.append(os.path.join(tmp, f"{cond}.hic"))
+            write_hic(hics[-1], [("chr21", nb * C.RES)], C.RES,
+                      {"chr21": synthetic_hic(nb, d_px, seed=seed,
+                                              n_loops=15)[:3]},
+                      version=8, norms={("KR", "chr21"): C.kr_vector(nb)})
+        assert diff_cli_main(["-f1", hics[0], "-f2", hics[1], "-o", ref]
+                             + C.F32_DIFF_CLI_FLAGS + cpu
+                             + ["--engine-mesh", "off"]) == 0
+        gold["diff_cli_hic"] = {s: open(ref + s).read() for s in sfxs}
+        print(f"diff_cli_text, diff_cli_hic ({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    x1, y1, v1, x2, y2, v2 = C.diff_slice_maps()
+    gold["diff_slice"] = _rows(detect_diff_loops_coo(
+        x1, y1, v1.copy(), x2, y2, v2.copy(),
+        DetectionConfig(precision="float32", **C.F32_DIFF_KW)))
+    print(f"diff_slice: {len(gold['diff_slice'])} rows "
+          f"({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    (n1, n2), kw = C.F32_INTER_MAP
+    x, y, v, _ = synthetic_inter(n1, n2, **kw)
+    for prec in ("float32", "float64"):
+        gold[f"inter_grid_{prec}"] = _inter_rows(detect_inter_loops_coo(
+            x, y, v.copy(), DetectionConfig(precision=prec,
+                                            **C.F32_INTER_KW),
+            chunk=C.F32_INTER_CHUNK))
+    print(f"inter grids: {len(gold['inter_grid_float32'])} rows "
+          f"({time.time() - t0:.1f} s)")
+    t0 = time.time()
+
+    (nb, d_px), kw = C.F32_SHARD_MAP
+    x, y, v, _ = synthetic_hic(nb, d_px, **kw)
+    mesh = make_mesh(n_block=4, n_row=1, devices=jax.devices()[:4])
+    gold["rowshard_map"] = _rows(detect_loops_coo(
+        x, y, v.copy(), DetectionConfig(precision="float32",
+                                        **C.F32_SHARD_KW),
+        runner=make_runner(mesh, "rowshard")))
+    print(f"rowshard_map: {len(gold['rowshard_map'])} rows "
+          f"({time.time() - t0:.1f} s)")
+    _dump(out, gold)
+
+
+def rowshard_golden(out, x, y, v, cfg, chrom):
+    """The JAX row-sharded runner on a 4-device CPU mesh."""
+    import jax
+
+    from mustache_tpu.pipeline import detect_loops_coo, write_loops
+    from mustache_tpu.sharding import make_mesh, make_runner
+
+    mesh = make_mesh(n_block=4, n_row=1, devices=jax.devices()[:4])
+    loops = detect_loops_coo(x, y, v, cfg,
+                             runner=make_runner(mesh, "rowshard"))
+    write_loops(out, [(chrom, chrom, cfg.resolution, loops)])
+    return loops
 
 
 def main():
@@ -177,10 +311,14 @@ def main():
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     out = args.out or OUT[args.slice]
-    if "f64" in args.slice:
+    if "f64" in args.slice or args.slice in HARNESS:
         # float64 arrays stay float64 in JAX only with x64 on (the JAX
         # package's tests turn it on in tests/conftest.py)
         os.environ["JAX_ENABLE_X64"] = "true"
+    if args.slice in HARNESS:
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + " --xla_force_host_platform_device_count=8").strip()
 
     import jax
 
@@ -194,8 +332,8 @@ def main():
         jdetect._BH_MODE = bh_mode
     os.makedirs(os.path.dirname(out), exist_ok=True)
     t0 = time.time()
-    if args.slice == "cpu_f64":
-        cpu_f64_golden(out)
+    if args.slice in ("cpu_f64", "cpu_f32"):
+        (cpu_f64_golden if args.slice == "cpu_f64" else cpu_f32_golden)(out)
         print(f"-> {out} ({time.time() - t0:.1f} s, jax {jax.__version__} "
               f"on {jax.default_backend()}, BH {jdetect._BH_MODE})")
         return
@@ -224,6 +362,8 @@ def main():
         x2, y2, v2, _ = synthetic_hic(*shape, **dict(kw, seed=DIFF_SEED2))
         loops = detect_diff_loops_coo(x, y, v, x2, y2, v2, cfg)
         write_diff_rows(out, chrom, cfg.resolution, loops)
+    elif args.slice == "rowshard_5kb":
+        loops = rowshard_golden(out, x, y, v, cfg, chrom)
     else:
         loops = detect_loops_coo(x, y, v, cfg,
                                  exact_normalize=args.slice == "exact_5kb")
