@@ -113,7 +113,25 @@ Phases, in order; any failure exits non-zero:
    as two processes on the first card over gloo (``--engine-nprocs 2``):
    the TSV byte-equal to the single-process run's, and with one
    chromosome's ingest failing, exit codes [0, 1] and the other two in
-   the TSV.
+   the TSV. The mesh's row axis: the dense runner on meshes of 4 x 1,
+   2 x 2, 1 x 4 and 1 x 3 entries of ``cuda:0`` over the JAX sharding
+   test's 8 blocks (256^2) and chr21 5 kb's six 2000^2 blocks, every
+   output bit-identical to ``n_row = 1``, fused launches and dense bytes
+   held per entry; row windows of 2, 3 and 4 parts joined equal to the
+   whole-block launch bit for bit, one window exact against its plain
+   version and timed against the whole-block launch; float64 (the ladder
+   route) on 2 x 2 within rtol 1e-9; the dryrun's ``n_row = 2`` part
+   (on four entries);
+11. ``.cool`` / ``.mcool`` without h5py (``io/h5.py``): the committed
+   fixtures in cooler's layout (tests/data/torch_port_cooler_layout.*,
+   gzip 6 + shuffle, chunked, an enum, variable-length attributes, two
+   resolutions) read equal to the JAX reader's digests
+   (tests/data/torch_port_cool_expected.json, ``tools/make_torch_golden.py
+   --slice cool_card``); chr21 5 kb written as ``.mcool`` by
+   ``tools/write_cool.py`` through the CLI, held to the 290-row golden as
+   in phase 5, its ingest against phase 5's ``.hic`` ingest; a small
+   inter pair from ``.cool`` equal to the same pair from ``.hic``; h5py
+   never imported.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -282,16 +300,18 @@ def near_tie(cs_blk: np.ndarray, i: int, j: int, spec) -> float:
     return float(np.min(margins) / scale)
 
 
-def kernel_bound(spec, N, DB, n_real):
+def kernel_bound(spec, N, DB, n_real, rows=None):
     """FLOP the algorithm needs, bytes it must move, and the least time
     the card could take for them: two separable passes over each sigma's
     nonzero taps (2r + 1) at every band cell (sum over rows of min(DB,
     N - i)) of every real slot, one FMA = 2 FLOP; cs and nzf read once
-    and band_v and band_sig written once over the band, 4 bytes each."""
+    and band_v and band_sig written once over the band, 4 bytes each.
+    ``rows``: a row window's band rows (default: all N)."""
     from mustache_tpu_torch.scalespace import kernel_radius
 
     taps = sum(2 * kernel_radius(s) + 1 for s in spec.blur_sigmas)
-    cells = sum(min(DB, N - i) for i in range(N)) * n_real
+    cells = sum(min(DB, N - i) for i in (range(N) if rows is None
+                                         else rows)) * n_real
     flop = 2 * 2 * taps * cells
     nbytes = 16 * cells
     t_ops, t_bytes = flop / FP32_FLOPS, nbytes / HBM_BYTES
@@ -1850,7 +1870,7 @@ def mesh_run(fn, runner):
     from mustache_tpu_torch.kernels import fused_ladder as fl
 
     fl.LAUNCHES = 0
-    runner.launches = [0] * runner.nb
+    runner.launches = [0] * len(runner.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rows = fn()
@@ -1929,7 +1949,10 @@ def phase_sharding(dev, workdir, loops4, warm4, rows7):
                               ("cuda:0 x4", 4, ["cuda:0"] * 4)):
         t0 = time.perf_counter()
         r = dryrun_multichip(n, devices)
-        say(f"[10] dryrun_multichip on {label}: mesh {r['mesh']}, pipeline "
+        say(f"[10] dryrun_multichip on {label}: dense runner on "
+            f"{r['dense_mesh']} bit-identical to fn, fused launches per "
+            f"entry {r['dense_launches_row' + str(r['dense_mesh']['row'])]}; "
+            f"mesh {r['mesh']}, pipeline "
             f"{r['pipeline_rows']} rows and diff {r['diff_rows']} rows "
             f"replicated == unsharded (q bit-identical), production "
             f"{r['production_rows']} rows; rowshard q max rel distance: "
@@ -2036,11 +2059,342 @@ def phase_sharding(dev, workdir, loops4, warm4, rows7):
         f"the single-process one ({wall1:.3f} s in process); walls per "
         f"process {pwalls[0]:.3f} / {pwalls[1]:.3f} s; with c1 failing on "
         f"process 1: exit codes {frcs}, the TSV holds c0 and c2, walls "
-        f"{fwalls[0]:.3f} / {fwalls[1]:.3f} s; phase 10 took "
+        f"{fwalls[0]:.3f} / {fwalls[1]:.3f} s; phase 10 (a-d) took "
         f"{time.perf_counter() - t_phase:.1f} s")
     rep.update(cli_single_wall_s=wall1, cli_two_process_walls_s=pwalls,
                cli_fault_walls_s=fwalls, cli_fault_rcs=frcs)
+    rep.update(phase_row_axis(dev))
+    say(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return rep
+
+
+ROW_MESHES = [(4, 1), (2, 2), (1, 4), (1, 3)]   # (n_block, n_row) of cuda:0
+
+
+def row_axis_blocks():
+    """The 8 blocks of tests/test_sharding.py::test_sharded_equals_
+    unsharded: 256^2, raw contacts of synthetic_hic(256, 64, seed 40-47,
+    n_loops=4)."""
+    from synthetic import synthetic_hic
+
+    blocks = np.zeros((8, 256, 256), dtype=np.float32)
+    for b in range(8):
+        x, y, v, _ = synthetic_hic(256, 64, seed=40 + b, n_loops=4)
+        blocks[b][x, y] = v
+    return blocks
+
+
+def chr21_dense_blocks(dev):
+    """chr21 5 kb's six 2000^2 blocks, densified (on the host) from its
+    band as the pipeline normalizes it on the device."""
+    from mustache_tpu_torch.bandnorm import bucket_rows, normalize_band_device
+    from mustache_tpu_torch.config import chunk_grid
+    from mustache_tpu_torch.detect import band_width, dense_from_band
+    from mustache_tpu_torch.pipeline import fill_raw_band, upload_band
+
+    (n_bins, d_px), _ = CHR21
+    x, y, v = workload(CHR21)
+    starts, _ = chunk_grid(n_bins, 2000, d_px)
+    shape = (bucket_rows(n_bins), band_width(2000, d_px))
+    band = upload_band(fill_raw_band(x, y, v, shape), dev)
+    band, _ = normalize_band_device(band, n_bins, 5000, d_px)
+    slices = torch.stack([band[s:s + 2000] for s in starts])
+    return dense_from_band(slices).cpu().numpy()
+
+
+def phase_row_axis(dev):
+    """Phase 10 (e): the mesh's row axis. The dense runner on meshes of
+    ``cuda:0`` entries (``ROW_MESHES``) against ``n_row = 1`` (the
+    unsplit ``fn``), outputs bit-identical, on the JAX test's 8 blocks and
+    chr21's six 2000^2 blocks; the joined row-window state against the
+    whole-block launch, bit-identical; one row window against its plain
+    version; the row-window launch timed against the whole-block launch;
+    float64 (ladder route) on 2 x 2 within rtol 1e-9."""
+    from mustache_tpu_torch import DetectionConfig
+    from mustache_tpu_torch.detect import _preamble, band_width, build_detector
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from mustache_tpu_torch.sharding import make_mesh, make_runner
+
+    t0 = time.perf_counter()
+    rep = {}
+    inputs = {"jax_blocks_256": (row_axis_blocks(), 64, 256),
+              "chr21_2000": (chr21_dense_blocks(dev), 400, 2000)}
+    for name, (blocks, d_px, n) in inputs.items():
+        cfg = DetectionConfig(resolution=5000, distance_bp=d_px * 5000,
+                              pt=PT, st=ST, precision="float32")
+        det = build_detector(cfg, n, device=dev)
+        base = {k: a.cpu().numpy() for k, a in det.fn(
+            torch.from_numpy(blocks).to(dev)).items()}
+        for n_block, n_row in ROW_MESHES:
+            runner = make_runner(make_mesh(n_block, n_row,
+                                           devices=["cuda:0"] * (n_block
+                                                                 * n_row)))
+            dets = runner.per_device(lambda d: build_detector(cfg, n,
+                                                              device=d))
+            fl.LAUNCHES = 0
+            runner.launches = [0] * len(runner.launches)
+            out = runner(dets, blocks)
+            torch.cuda.synchronize()
+            launches, total = list(runner.launches), fl.LAUNCHES
+            for k, want in base.items():
+                if not np.array_equal(out[k], want,
+                                      equal_nan=want.dtype.kind == "f"):
+                    fail(f"row axis {name} {n_block}x{n_row}: {k} differs "
+                         f"from n_row = 1")
+            if total <= 0 or sum(launches) != total or min(launches) <= 0:
+                fail(f"row axis {name} {n_block}x{n_row}: fused launches "
+                     f"{total}, per entry {launches}")
+            block_mb = -(-len(blocks) // n_block) * blocks[0].nbytes / 1e6
+            held = ([round(h / 1e6, 3) for h in runner.last_held]
+                    if n_row > 1 else [block_mb] * n_block)
+            say(f"[10] row axis {name} on {n_block}x{n_row} cuda:0: outputs "
+                f"bit-identical to n_row = 1; fused launches per entry "
+                f"{launches}; dense MB held per entry {held} against "
+                f"{block_mb:.2f} MB of its group's blocks")
+            rep[f"launches_row_{name}_{n_block}x{n_row}"] = launches
+            rep[f"held_mb_row_{name}_{n_block}x{n_row}"] = held
+
+    # the joined row-window state against the whole-block launch, one row
+    # window against its plain version, and the launches timed: chr21's
+    # six blocks in one batch
+    blocks, d_px, n = inputs["chr21_2000"]
+    cfg = DetectionConfig(resolution=5000, distance_bp=d_px * 5000, pt=PT,
+                          st=ST, precision="float32")
+    det = build_detector(cfg, n, device=dev)
+    spec, DB = det.spec, band_width(n, d_px)
+    cs, nz = _preamble(torch.from_numpy(blocks).to(dev), d_px)
+    nzf = nz.to(torch.float32)
+    del nz
+    kw = dict(R=spec.radius, n_octaves=len(spec.octave_values),
+              planes_per_octave=spec.planes_per_octave, DB=DB)
+    full = fl.fused_ladder_window(cs, nzf, det.taps, radii=det.radii, **kw)
+    for n_row in (2, 3, 4):
+        cuts = fl.row_cuts(n, n_row)
+        parts = []
+        for lo, hi in zip(cuts, cuts[1:]):
+            w0, w1 = fl.window_rows(n, lo, hi, spec.radius)
+            parts.append(fl.fused_ladder_window(
+                cs[:, w0:w1].contiguous(), nzf[:, w0:w1].contiguous(),
+                det.taps, radii=det.radii, N=n, base=w0, t_lo=lo, t_hi=hi,
+                **kw))
+        joined = [torch.cat([p[i] for p in parts], 1) for i in range(3)]
+        if not all(torch.equal(a, b) for a, b in zip(joined, full)):
+            fail(f"row windows of {n_row} parts do not join to the "
+                 f"whole-block launch")
+    cuts = fl.row_cuts(n, 4)
+    lo, hi = cuts[1], cuts[2]
+    w0, w1 = fl.window_rows(n, lo, hi, spec.radius)
+    win = dict(N=n, base=w0, t_lo=lo, t_hi=hi)
+    wcs, wnz = cs[:, w0:w1].contiguous(), nzf[:, w0:w1].contiguous()
+    got = fl.fused_ladder_window(wcs, wnz, det.taps, radii=det.radii,
+                                 **kw, **win)
+    plain = fl.fused_ladder_nms_reference(wcs, wnz, det.taps, **kw, **win)
+    torch.cuda.synchronize()
+    locs, sums = fl.reduce_parts(
+        got[2], kw["n_octaves"] * kw["planes_per_octave"])
+    err = float((got[0] - plain[0]).abs().max())
+    sig_diff = int((got[1] != plain[1]).sum())
+    locs_err = float((locs - plain[2]).abs().max())
+    sums_rel = float(((sums - plain[3]).abs()
+                      / plain[3].abs().clamp(min=1e-30)).max())
+    if sig_diff or err > 0 or locs_err > 0 or sums_rel > RTOL:
+        fail(f"row window [{lo}, {hi}) against its plain version: band_sig "
+             f"differs at {sig_diff} cells, band_v max abs err {err}, locs "
+             f"{locs_err}, sums rel {sums_rel}")
+    ms_win = cuda_ms(lambda: fl.fused_ladder_window(
+        wcs, wnz, det.taps, radii=det.radii, **kw, **win), reps=10)
+    ms_full = cuda_ms(lambda: fl.fused_ladder_window(
+        cs, nzf, det.taps, radii=det.radii, **kw), reps=10)
+    plain_ms = cuda_ms(lambda: fl.fused_ladder_nms_reference(
+        wcs, wnz, det.taps, **kw, **win), reps=2)
+    rows = range(lo * fl.TILE_ROWS, min(hi * fl.TILE_ROWS, n))
+    flop, nbytes, bound_ms, bound_by = kernel_bound(spec, n, DB, len(blocks),
+                                                    rows=rows)
+    say(f"[10] row window [{lo * fl.TILE_ROWS}, {rows[-1] + 1}) of chr21's "
+        f"six 2000^2 blocks (held rows [{w0}, {w1}), part 2 of 4): band_sig "
+        f"equal, band_v max abs err {err:.3g}, locs {locs_err:.3g}, sums rel "
+        f"{sums_rel:.3g} against its plain version; joined windows of 2, 3 "
+        f"and 4 parts == the whole-block launch (bit-identical); kernel "
+        f"{ms_win:.4f} ms against the whole-block launch's {ms_full:.4f} ms; "
+        f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{flop / 1e9:.3f} GFLOP)")
+    rep.update(max_abs_err_row_window=err, ms_row_window=ms_win,
+               ms_full_block_b6=ms_full, plain_ms_row_window=plain_ms,
+               bound_ms_row_window=bound_ms, bound_by_row_window=bound_by)
+    del cs, nzf, full, parts, joined, wcs, wnz, got, plain
+    torch.cuda.empty_cache()
+
+    # float64: the ladder route on 2 x 2 within rtol 1e-9 of n_row = 1
+    blocks = inputs["jax_blocks_256"][0]
+    cfg = DetectionConfig(resolution=5000, distance_bp=64 * 5000, pt=PT,
+                          st=ST, precision="float64", max_candidates=256)
+    want = {k: a.cpu().numpy() for k, a in build_detector(
+        cfg, 256, device=dev).fn(torch.from_numpy(blocks).to(dev)).items()}
+    runner = make_runner(make_mesh(2, 2, devices=["cuda:0"] * 4))
+    got = runner(runner.per_device(lambda d: build_detector(cfg, 256,
+                                                            device=d)),
+                 blocks)
+    worst = 0.0
+    for k, w in want.items():
+        if k in ("cand_logq", "neigh_logq"):
+            fin = np.isfinite(w) & (w != 0)
+            if not np.array_equal(np.isfinite(got[k]), np.isfinite(w)):
+                fail(f"float64 row axis: {k} finite cells differ")
+            worst = max(worst, float(np.max(np.abs(got[k][fin] - w[fin])
+                                            / np.abs(w[fin]))))
+        elif not np.array_equal(got[k], w):
+            fail(f"float64 row axis 2x2: {k} differs from n_row = 1")
+    if worst > 1e-9:
+        fail(f"float64 row axis 2x2: log q max rel distance {worst:.3g}")
+    say(f"[10] row axis at float64 (ladder route) on 2x2 cuda:0: every "
+        f"output equal to n_row = 1 but log q, max rel distance "
+        f"{worst:.3g} (bound 1e-9); fused launches {runner.launches}; "
+        f"row axis took {time.perf_counter() - t0:.1f} s")
+    rep["f64_row_axis_logq_rel"] = worst
+    return rep
+
+
+def phase_cool(dev, workdir, files):
+    """Phase 11: ``.cool`` / ``.mcool`` on the card, which has no h5py.
+    The committed fixtures in cooler's layout read equal to the JAX
+    reader's digests; chr21 5 kb written as ``.mcool`` by
+    ``tools/write_cool.py`` through the CLI against the 290-row golden;
+    a small inter pair from ``.cool`` against the same pair from
+    ``.hic``. ``files``: phase 5's report (its ``.hic`` ingest)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import write_cool
+    from mustache_tpu_torch.io import cool as tcool
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from synthetic import synthetic_inter
+
+    t_phase = time.perf_counter()
+    rep = {}
+    with open(COOL_EXPECTED) as fh:
+        want = {k: v for k, v in json.load(fh).items()
+                if not k.startswith("_")}
+    t0 = time.perf_counter()
+    got = cool_digests(tcool, *COOL_FIXTURES)
+    if got != want:
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        fail(f"cooler-layout fixtures read other triplets: {bad}")
+    say(f"[11] cooler-layout fixtures (gzip 6 + shuffle, chunked, enum, "
+        f"variable-length attributes, .mcool of two resolutions): "
+        f"{len(want)} reads equal to the JAX reader's digests in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # chr21 5 kb as .mcool through the CLI
+    (n_bins, _), _ = CHR21
+    x, y, v = workload(CHR21)
+    mcool = os.path.join(workdir, "chr21.mcool")
+    t0 = time.perf_counter()
+    write_cool.write_mcool(mcool, {5000: ([("chr21", n_bins * 5000)],
+                                          {"chr21": (x, y, v)}, None)},
+                           count_dtype=np.float64)
+    t_write = time.perf_counter() - t0
+    _, golden = read_tsv(GOLDEN)
+    out = os.path.join(workdir, "cool_loops.tsv")
+    walls, ingests = [], []
+    for _ in range(2):
+        fl.LAUNCHES = 0
+        rc, events, wall = run_cli(["-f", mcool, "-ch", "chr21", "-r", "5kb",
+                                    "-o", out, "-pt", str(PT), "-st",
+                                    str(ST)])
+        if rc != 0:
+            fail(f"CLI on .mcool exited {rc}")
+        plan = event(events, "detect_plan")["detail"]
+        if "device=cuda" not in plan or fl.LAUNCHES <= 0:
+            fail(f"CLI on .mcool: {plan}, kernel launches {fl.LAUNCHES}")
+        _, rows = read_tsv(out)
+        n_common, worst = compare_to_golden(rows, golden, tag="11")
+        walls.append(wall)
+        ingests.append(event(events, "ingest")["seconds"])
+        rep["cli_mcool_launches"] = fl.LAUNCHES
+    say(f"[11] chr21 5 kb as .mcool ({os.path.getsize(mcool) / 1e6:.1f} MB, "
+        f"written in {t_write:.1f} s): CLI {len(rows)} rows, {n_common} "
+        f"equal to the golden (q max rel err {worst:.3g}); wall "
+        f"{walls[0]:.3f} / {walls[1]:.3f} s, ingest from .mcool "
+        f"{ingests[0]:.3f} / {ingests[1]:.3f} s against phase 5's .hic "
+        f"ingest {files['cli_hic_ingest_s']:.3f} s")
+    rep.update(cli_mcool_wall_s=walls[1], cli_mcool_ingest_s=ingests[1],
+               cli_mcool_rows=len(rows))
+
+    # a small inter pair from .cool against the same contacts from .hic
+    n1, n2 = 1000, 800
+
+    def stored(x, y, v):
+        # one count per pixel, f32-exact: the .hic writer stores float32
+        _, first = np.unique(x * (n1 + n2) + y, return_index=True)
+        return x[first], y[first], v[first].astype(np.float32).astype(
+            np.float64)
+
+    xi, yi, vi = stored(*synthetic_inter(n1, n2, seed=2121, n_loops=20)[:3])
+    intra = stored(*workload(((n1, 200), dict(seed=2121, n_loops=20))))
+    cool = os.path.join(workdir, "pair.cool")
+    hic = os.path.join(workdir, "pair.hic")
+    write_cool.write_cool(cool, [("c1", n1 * 5000), ("c2", n2 * 5000)], 5000,
+                          {"c1": intra, ("c1", "c2"): (xi, yi, vi)},
+                          count_dtype=np.float64)
+    write_hic_pairs(hic, n1, n2, intra, (xi, yi, vi))
+    outs = {}
+    for label, path in (("cool", cool), ("hic", hic)):
+        outs[label] = os.path.join(workdir, f"pair_{label}.tsv")
+        rc, events, _ = run_cli(["-f", path, "-ch", "c1", "-ch2", "c2", "-r",
+                                 "5kb", "-o", outs[label], "-pt",
+                                 str(INTER_PT), "-st", str(INTER_ST)])
+        if rc != 0:
+            fail(f"inter CLI from .{label} exited {rc}")
+    _, rows_c = read_tsv(outs["cool"])
+    _, rows_h = read_tsv(outs["hic"])
+    if not rows_c or rows_c != rows_h:
+        fail(f"inter pair: {len(rows_c)} rows from .cool, {len(rows_h)} "
+             f"from .hic, not equal")
+    if "h5py" in sys.modules:
+        fail("h5py was imported")
+    say(f"[11] inter pair c1 x c2 ({n1} x {n2} bins) from .cool: "
+        f"{len(rows_c)} rows, equal to the .hic run's; h5py not imported; "
+        f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    rep["inter_cool_rows"] = len(rows_c)
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+COOL_EXPECTED = os.path.join(ROOT, "tests", "data",
+                             "torch_port_cool_expected.json")
+COOL_FIXTURES = [os.path.join(ROOT, "tests", "data",
+                              f"torch_port_cooler_layout.{ext}")
+                 for ext in ("cool", "mcool")]
+COOL_PAIRS = [("chr1", "chr1"), ("chr2", "chr2"), ("chr1", "chr2"),
+              ("chr2", "chr1")]
+
+
+def cool_digests(mod, cool, mcool) -> dict:
+    """What the ``.cool`` reader module ``mod`` reads from the two fixture
+    files: ``"<file> <c1> <c2> <balance>" -> [pixels, dtypes, sha256 of x,
+    y and v]`` for intra and inter fetches (300 kb), balanced through the
+    CLI's entry points and raw through ``CoolFile``, and each file's
+    chromosome list."""
+    import hashlib
+
+    out = {}
+    for label, path, res in (("cool", cool, None), ("mcool", mcool, 5000)):
+        clr = mod.CoolFile(path, resolution=res)
+        for c1, c2 in COOL_PAIRS:
+            raw = (clr.fetch_band(c1, 300_000, balance=False) if c1 == c2
+                   else clr.fetch_rect(c1, c2, balance=False))
+            bal = (mod.read_cooler(path, 300_000, c1, c2, True)[:3]
+                   if res is None else
+                   mod.read_mcooler(path, 300_000, c1, c2, res, True))
+            for tag, t in (("raw", raw), ("balanced", bal)):
+                out[f"{label} {c1} {c2} {tag}"] = (
+                    [len(t[0]), " ".join(str(a.dtype) for a in t)]
+                    + [hashlib.sha256(np.ascontiguousarray(a).tobytes())
+                       .hexdigest() for a in t])
+        clr.close()
+        out[f"{label} chromosomes"] = mod.cool_chrom_list(path, res)
+    return out
 
 
 @contextlib.contextmanager
@@ -2114,9 +2468,11 @@ def main():
         ladder = phase_ladder_route(dev, workdir)
         inter = phase_inter(dev, workdir)
         sharding = phase_sharding(dev, workdir, loops4, warm4, rows7)
+        cool = phase_cool(dev, workdir, files)
     say(json.dumps({"phase5_5kb": files, "phase6_1kb": slice_1kb,
                     "phase7_diff": diff, "phase8_ladder": ladder,
-                    "phase9_inter": inter, "phase10_sharding": sharding}))
+                    "phase9_inter": inter, "phase10_sharding": sharding,
+                    "phase11_cool": cool}))
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
@@ -2129,7 +2485,8 @@ def main():
         "replaces": "mustache_tpu/kernels/fused_ladder.py:104",
         "launches": launches,
         "max_abs_err": max([r["max_abs_err"] for r in report.values()]
-                           + [diff["max_abs_err_diff"]]),
+                           + [diff["max_abs_err_diff"],
+                              sharding["max_abs_err_row_window"]]),
         "ms": r5["ms"],
         "plain_ms": r5["plain_ms"],
         "bound_ms": r5["bound_ms"],
@@ -2162,6 +2519,12 @@ def main():
         "launches_per_entry_sharded": {
             k[len("launches_"):]: v for k, v in sharding.items()
             if k.startswith("launches_")},
+        "ms_row_window": sharding["ms_row_window"],
+        "ms_full_block_b6": sharding["ms_full_block_b6"],
+        "plain_ms_row_window": sharding["plain_ms_row_window"],
+        "bound_ms_row_window": sharding["bound_ms_row_window"],
+        "bound_by_row_window": sharding["bound_by_row_window"],
+        "launches_cli_mcool": cool["cli_mcool_launches"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""mustache-tpu, PyTorch/CUDA port (partial).
+"""mustache-tpu, PyTorch/CUDA port.
 
 Multi-scale chromatin loop detection (scale-space difference of
 Gaussians on Hi-C / Micro-C maps) for PyTorch, with the fused blur-ladder
@@ -14,8 +14,10 @@ inter-chromosomal detection (``inter.detect_inter_loops_coo``; the CLI's
 conditions) or from contact files through the CLIs (``python -m
 mustache_tpu_torch``, ``mustache-tpu-torch``; ``python -m
 mustache_tpu_torch.diff_cli``, ``diff-mustache-tpu-torch``: text, HiC-Pro,
-.hic, and .cool / .mcool where h5py is installed). What is still to port
-is listed in ROADMAP.md.
+.hic, .cool and .mcool, the last two through the port's own HDF5 reader,
+``io/h5.py``, without h5py), on one device, a mesh of devices (blocks
+over its ``block`` axis, each block's rows over its ``row`` axis) or
+several processes. ROADMAP.md lists what remains.
 """
 
 from mustache_tpu_torch.config import DetectionConfig

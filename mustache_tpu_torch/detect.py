@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from mustache_tpu_torch.config import DetectionConfig
 from mustache_tpu_torch.kernels import fused_ladder
-from mustache_tpu_torch.ladder import ladder_best
+from mustache_tpu_torch.ladder import ladder_best, ladder_window
 from mustache_tpu_torch.scalespace import (
     LadderSpec, build_ladder, ladder_tensor, radii_tensor,
 )
@@ -82,12 +82,14 @@ def band_of(x: torch.Tensor, Dl: int, fill) -> torch.Tensor:
     return torch.where(validl, bnd, fill)
 
 
-def _preamble(c: torch.Tensor, d_px: int):
+def _preamble(c: torch.Tensor, d_px: int, row0: int = 0):
     """Support mask + sentinel fill of [..., N, N] blocks
-    (mustache.py:699-706, intra-chromosomal)."""
-    N = c.shape[-1]
-    r = torch.arange(N, device=c.device)
-    diag = r[None, :] - r[:, None]                       # y - x
+    (mustache.py:699-706, intra-chromosomal), or of the rows ``[row0,
+    row0 + rows)`` of such blocks (``c`` ``[..., rows, N]``): the fill is
+    elementwise, so a row window needs only its offset."""
+    rows, N = c.shape[-2:]
+    diag = (torch.arange(N, device=c.device)[None, :]
+            - torch.arange(row0, row0 + rows, device=c.device)[:, None])
     nz = (c != 0) & (diag >= 4)
     c = torch.where(diag <= 4, SENTINEL, c)
     c = torch.where(diag >= d_px + 1, SENTINEL, c)
@@ -96,13 +98,18 @@ def _preamble(c: torch.Tensor, d_px: int):
 
 class _BandGeom:
     """Band-space geometry of one [N, N] block: band[i, d] <-> dense[i,
-    i+d], width Dl = band_width(N, d_px)."""
+    i+d], width Dl = band_width(N, d_px); of its band rows ``[row0, row0 +
+    rows)`` when given (``band_il`` holds the block's row indices)."""
 
-    def __init__(self, N: int, d_px: int, device):
+    def __init__(self, N: int, d_px: int, device, row0: int = 0,
+                 rows: int | None = None):
+        rows = N if rows is None else rows
         self.N = N
         self.Dl = Dl = band_width(N, d_px)
-        self.band_dl = torch.arange(Dl, device=device)[None, :].expand(N, Dl)
-        self.band_il = torch.arange(N, device=device)[:, None].expand(N, Dl)
+        self.band_dl = torch.arange(Dl, device=device)[None, :].expand(
+            rows, Dl)
+        self.band_il = torch.arange(row0, row0 + rows,
+                                    device=device)[:, None].expand(rows, Dl)
         self.band_yl = self.band_il + self.band_dl
         self.band_validl = self.band_yl < N
 
@@ -253,6 +260,19 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
             in_band, arr[nxc, ndc],
             torch.where(inside, inside_fill, outside_fill).to(arr.dtype))
     return out
+
+
+def band_rows(win: torch.Tensor, base: int, row0: int, rows: int,
+              Dl: int) -> torch.Tensor:
+    """Band rows ``[row0, row0 + rows)`` ``[..., rows, Dl]`` of ``n x n``
+    maps from their dense rows ``[base, ...)`` (``win`` ``[..., held,
+    n]``): ``band[i, d] = map[row0 + i, row0 + i + d]``, 0 beyond the
+    map (as :func:`band_of` with fill 0)."""
+    n = win.shape[-1]
+    i = torch.arange(row0, row0 + rows, device=win.device)[:, None]
+    j = i + torch.arange(Dl, device=win.device)[None, :]
+    vals = win[..., (i - base).expand(-1, Dl), j.clamp(max=n - 1)]
+    return torch.where(j < n, vals, 0.0)
 
 
 def _slice_support(geom: _BandGeom, band_slice: torch.Tensor, d_px: int):
@@ -473,25 +493,104 @@ class BlockDetector:
         n, >= Dl]`` on the detector's route; ``valid_h[b] == 0`` marks a
         pad slot, which neither route computes and whose outputs are
         empty. Each stage is a named profiler range (``detect.*``)."""
-        cfg, spec, n = self.cfg, self.spec, self.n
-        d_px = cfg.distance_px
+        d_px = self.cfg.distance_px
         rf = torch.profiler.record_function
         with rf("detect.preamble"):
             cs, nz = _preamble(dense_from_band(slices), d_px)
         with rf("detect." + self.route):
             state = self.route_state(cs, nz, slices, valid_h)
         del cs, nz
-        geom = _BandGeom(n, d_px, slices.device)
-        st, log_pt = thresholds(cfg)
+        return self._epilogues(slices, state, len(valid_h))
+
+    def _epilogues(self, slices: torch.Tensor, state, B: int) -> dict:
+        """The batch's candidate tables from its band slices and its
+        :meth:`route_state`-format state, block by block."""
+        d_px = self.cfg.distance_px
+        geom = _BandGeom(self.n, d_px, slices.device)
+        st, log_pt = thresholds(self.cfg)
         outs = []
-        with rf("detect.epilogue"):
-            for b in range(len(valid_h)):
+        with torch.profiler.record_function("detect.epilogue"):
+            for b in range(B):
                 support = _slice_support(geom, slices[b], d_px)
                 _, best_logp, best_sig = self.block_best(state, b, support)
                 outs.append(_epilogue(
                     geom, best_logp, best_sig, *support,
-                    det_ceil=spec.det_ceil, K=self.K, st=st, log_pt=log_pt))
+                    det_ceil=self.spec.det_ceil, K=self.K, st=st,
+                    log_pt=log_pt))
             return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def row_state(self, win: torch.Tensor, base: int, t_lo: int,
+                  t_hi: int) -> tuple:
+        """One row part of a batch of dense normalized blocks: the state
+        of the band rows of the fused kernel's row tiles ``[t_lo, t_hi)``
+        from ``win`` ``[B, rows, n]``, the blocks' dense rows ``[base,
+        base + rows)`` (at least :func:`fused_ladder.window_rows`). The
+        preamble is elementwise, so it runs on the window. Returns
+        ``(slices, ...)``: the part's band slices ``[B, m, Dl]`` and, on
+        the kernel route, the row-window launch's ``(band_v, band_sig,
+        parts)``; on the ladder route ``(best_v, best_sig, locs, sums)``
+        with the part's per-plane support partials (min |L|, sum |L|).
+        :meth:`join_rows` joins the parts of a batch."""
+        n, d_px = self.n, self.cfg.distance_px
+        spec = self.spec
+        Dl = band_width(n, d_px)
+        TR = fused_ladder.TILE_ROWS
+        row0 = t_lo * TR
+        rows = min(t_hi * TR, n) - row0
+        dev = win.device
+        rf = torch.profiler.record_function
+        with rf("detect.preamble"):
+            win = win.to(self.taps.dtype)
+            gi = torch.arange(base, base + win.shape[-2], device=dev)[:, None]
+            d = torch.arange(n, device=dev)[None, :] - gi
+            # the blocks as fn sees them: their band, densified
+            cs, nz = _preamble(torch.where((d >= 0) & (d < Dl), win, 0.0),
+                               d_px, row0=base)
+            slices = band_rows(win, base, row0, rows, Dl)
+        with rf("detect." + self.route):
+            if self.route == "kernel":
+                return (slices,) + fused_ladder.fused_ladder_window(
+                    cs, nz.to(torch.float32), self.taps, R=spec.radius,
+                    n_octaves=len(spec.octave_values),
+                    planes_per_octave=spec.planes_per_octave, DB=Dl, N=n,
+                    base=base, t_lo=t_lo, t_hi=t_hi, radii=self.radii)
+            geom = _BandGeom(n, d_px, dev, row0=row0, rows=rows)
+            nzb, _, _ = _slice_support(geom, slices, d_px)
+            return (slices,) + ladder_window(cs, nzb, self.taps, spec, n, Dl,
+                                             base=base, row0=row0, rows=rows)
+
+    def join_rows(self, parts: list) -> dict:
+        """The batch's outputs (as :meth:`fn`'s) from its :meth:`row_state`
+        parts in row order, all on this detector's device: rows and
+        per-tile partials concatenated, the partials reduced as the
+        unsplit wrapper reduces them (kernel route: the same tensor, so
+        the same bits), then the unchanged epilogue on the whole block.
+        On the ladder route log p comes from the best response and the
+        reduced partials (``_kernel_best``: v > 0 at every detection), so
+        it differs from the unsplit scan's per-plane log p only by the
+        order of the partial sums."""
+        slices = torch.cat([p[0] for p in parts], dim=1)
+        B = slices.shape[0]
+        P = len(self.spec.octave_values) * self.spec.planes_per_octave
+        best_v = torch.cat([p[1] for p in parts], dim=1)
+        best_sig = torch.cat([p[2] for p in parts], dim=1)
+        if self.route == "kernel":
+            locs, sums = fused_ladder.reduce_parts(
+                torch.cat([p[3] for p in parts], dim=1), P)
+            return self._epilogues(slices, (best_v, best_sig, locs, sums), B)
+        locs = torch.stack([p[3] for p in parts]).amin(dim=0)
+        sums = parts[0][4]
+        for p in parts[1:]:
+            sums = sums + p[4]
+        geom = _BandGeom(self.n, self.cfg.distance_px, slices.device)
+        best = []
+        for b in range(B):
+            nzb, count, _ = _slice_support(geom, slices[b],
+                                           self.cfg.distance_px)
+            best.append(_kernel_best((best_v[b], best_sig[b], locs[b],
+                                      sums[b]), nzb, count))
+        state = tuple(torch.stack(a) for a in zip(*best))
+        return self._epilogues(slices, state, B)
 
     def fn_band(self, band: torch.Tensor, starts) -> dict:
         """Batch detection from the normalized chromosome band

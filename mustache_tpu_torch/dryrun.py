@@ -6,19 +6,21 @@ inputs (``_example_block`` and ``_example_coo`` are copies):
 ``entry()``               -> ``(fn, example_args)``: one detection block
                              through the detector's route (the fused
                              kernel on the card) and epilogue.
-``dryrun_multichip(n)``   -> the detector through the dense runner, the
-                             single-map pipeline through the replicate
-                             placement, the differential pipeline through
-                             both placements and (``production=True``)
-                             the production geometry through both, each
-                             held to the unsharded run on the mesh's first
-                             device: anchors, scales and tags exact, q
-                             bit-identical for replicate and within rtol
-                             5e-3 for rowshard (host vs device normalize).
-
-The mesh's row axis (``__graft_entry__.py:104``: ``n_row=2``) is not
-ported (``sharding.make_mesh``), so that part is not run; the output says
-so.
+``dryrun_multichip(n)``   -> the detector through the dense runner on a
+                             ``(n / 2) x 2`` (block, row) mesh wherever the
+                             JAX dryrun builds one (n even and >= 4,
+                             ``__graft_entry__.py:102-106``; else n x 1),
+                             held bit for bit to the unsharded ``fn`` and
+                             to the ``n x 1`` mesh; the single-map
+                             pipeline through the replicate placement, the
+                             differential pipeline through both
+                             placements and (``production=True``) the
+                             production geometry through both, on the
+                             ``n x 1`` mesh, each held to the unsharded
+                             run on the mesh's first device: anchors,
+                             scales and tags exact, q bit-identical for
+                             replicate and within rtol 5e-3 for rowshard
+                             (host vs device normalize).
 
     python -m mustache_tpu_torch.dryrun [--devices N] [--device cuda:0]
 """
@@ -114,6 +116,14 @@ def _held(label, base, got, *, key, q, rtol=None) -> float:
     return dist
 
 
+def dense_mesh_shape(n_devices: int) -> tuple[int, int]:
+    """``(n_block, n_row)`` of the dense runner's mesh: blocks over
+    ``block`` and each block's rows over a ``row`` pair wherever the JAX
+    dryrun builds one (``__graft_entry__.py:102-106``)."""
+    n_row = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    return n_devices // n_row, n_row
+
+
 def dryrun_multichip(n_devices: int, devices=None,
                      production: bool = True) -> dict:
     """The multi-device dryrun on the first ``n_devices`` of ``devices``
@@ -134,30 +144,41 @@ def dryrun_multichip(n_devices: int, devices=None,
     devices = devices[:n_devices]
     mesh = make_mesh(n_block=n_devices, n_row=1, devices=devices)
     dev0 = mesh.block_devices[0]
-    report = {"mesh": mesh.shape}
-    print(f"dryrun_multichip: mesh={mesh.shape} devices={devices}; the row "
-          f"axis (n_row=2) is not ported and not run")
+    n_block, n_row = dense_mesh_shape(n_devices)
+    mesh2 = make_mesh(n_block=n_block, n_row=n_row, devices=devices)
+    report = {"mesh": mesh.shape, "dense_mesh": mesh2.shape}
+    print(f"dryrun_multichip: mesh={mesh.shape} dense-runner mesh="
+          f"{mesh2.shape} devices={devices}")
 
     # --- the detector through the dense runner --------------------------
     n, d_px = 256, 64
     cfg = DetectionConfig(resolution=5000, distance_bp=d_px * 5000,
                           precision="float32", max_candidates=512,
                           block_batch=n_devices)
-    runner = make_runner(mesh)
-    dets = runner.per_device(lambda d: build_detector(cfg, n, device=d))
     blocks = np.stack([_example_block(n, d_px, seed=s)
                        for s in range(n_devices)])
-    out = runner(dets, blocks)
-    assert out["cand_x"].shape == (n_devices, 512)
-    assert np.isfinite(out["nz_count"]).all()
-    assert (out["nz_count"] > 0).all()
     base = {k: a.cpu().numpy() for k, a in build_detector(
         cfg, n, device=dev0).fn(torch.from_numpy(blocks).to(dev0)).items()}
-    for k in base:
-        if not _same(base[k], out[k]):
-            raise AssertionError(f"dense runner: {k} differs from fn")
+    runs = {}
+    for m in (mesh2, mesh) if n_row > 1 else (mesh,):
+        runner = make_runner(m)
+        dets = runner.per_device(lambda d: build_detector(cfg, n, device=d))
+        out = runner(dets, blocks)
+        assert out["cand_x"].shape == (n_devices, 512)
+        assert np.isfinite(out["nz_count"]).all()
+        assert (out["nz_count"] > 0).all()
+        for k in base:
+            if not _same(base[k], out[k]):
+                raise AssertionError(f"dense runner on {m.shape}: {k} "
+                                     f"differs from fn")
+        runs[m.shape["row"]] = out
+        report[f"dense_launches_row{m.shape['row']}"] = runner.launches
+        report[f"dense_held_row{m.shape['row']}"] = runner.last_held
     print(f"dryrun_multichip detector OK: blocks={blocks.shape} "
-          f"nz={out['nz_count'].tolist()} == unsharded fn")
+          f"nz={out['nz_count'].tolist()} == unsharded fn"
+          + (f"; the {mesh2.shape} row split == the {mesh.shape} mesh "
+             f"(bit-identical), fused launches per entry "
+             f"{report['dense_launches_row2']}" if n_row > 1 else ""))
 
     # --- the single-map pipeline through the replicate placement -------
     loop_key = lambda lp: (lp.bin1, lp.bin2, lp.scale)   # noqa: E731

@@ -1,7 +1,7 @@
 """Ingest layer: contact-map loaders emitting upper-triangular COO triplets.
 
-Torch port of ``mustache_tpu/io`` (no pandas, h5py only inside the
-``.cool`` reader's calls). Every loader returns ``(x, y, v)`` with
+Torch port of ``mustache_tpu/io`` (no pandas, no h5py: ``.cool`` and
+``.mcool`` are read by the port's own HDF5 reader, ``io/h5.py``). Every loader returns ``(x, y, v)`` with
 ``x <= y`` (bin indices) filtered to the requested diagonal band, matching
 the invariants of the reference loaders (mustache.py:276-277, :386-390).
 """

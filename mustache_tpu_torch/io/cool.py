@@ -1,9 +1,10 @@
-"""Native .cool / .mcool reader (HDF5 via h5py — no cooler dependency).
+""".cool / .mcool reader over the port's own HDF5 reader (``io/h5.py``:
+numpy and zlib; no h5py, no cooler).
 
-Copied from ``mustache_tpu/io/cool.py:1-239``, with h5py imported only
-inside the reader's calls: importing this module never loads h5py, and
-without h5py opening a file raises the JAX reader's error (there is no
-fallback reader).
+Copied from ``mustache_tpu/io/cool.py:1-239`` with the HDF5 access moved
+from h5py to :class:`mustache_tpu_torch.io.h5.H5File`: the names,
+signatures, errors and results are the JAX reader's. Nothing of the port
+imports h5py.
 
 Implements the subset of the cooler schema the detection engine needs
 (reference usage: mustache.py:399-592, :1019-1029):
@@ -13,10 +14,11 @@ Implements the subset of the cooler schema the detection engine needs
 * ``.mcool`` files address a resolution via ``/resolutions/<res>/...``
 
 Band fetches use the ``bin1_offset`` index to read exactly the pixel rows
-of the requested chromosome, then filter to the diagonal band — this is
-equivalent to (and replaces) the reference's overlapping-window walk with
-Python set-difference dedup (mustache.py:411-457), which existed only to
-work around cooler's dense-window API.
+of the requested chromosome (only the chunks that hold them are
+decompressed), then filter to the diagonal band — this is equivalent to
+(and replaces) the reference's overlapping-window walk with Python
+set-difference dedup (mustache.py:411-457), which existed only to work
+around cooler's dense-window API.
 
 Balancing matches ``cooler.matrix(balance=...)``: value = count *
 weight[bin1] * weight[bin2]; NaN weights produce NaN values which the
@@ -28,33 +30,31 @@ from __future__ import annotations
 
 import numpy as np
 
-
-def _require_h5py():
-    try:
-        import h5py
-    except ImportError:
-        raise RuntimeError(".cool support requires h5py") from None
-    return h5py
+from mustache_tpu_torch.io.h5 import H5File
 
 
 class CoolFile:
     """Read-only view of one resolution of a .cool/.mcool file."""
 
     def __init__(self, path: str, resolution: int | None = None):
-        h5py = _require_h5py()
         self.path = path
-        self._h5 = h5py.File(path, "r")
-        if path.endswith(".mcool") or "resolutions" in self._h5:
-            if resolution is None:
-                raise ValueError(".mcool requires an explicit resolution")
-            key = f"resolutions/{int(resolution)}"
-            if key not in self._h5:
-                avail = list(self._h5.get("resolutions", {}).keys())
-                raise ValueError(
-                    f"resolution {resolution} not in {path}; available: {avail}")
-            self._g = self._h5[key]
-        else:
-            self._g = self._h5
+        self._h5 = H5File(path)
+        try:
+            if path.endswith(".mcool") or "resolutions" in self._h5:
+                if resolution is None:
+                    raise ValueError(".mcool requires an explicit resolution")
+                key = f"resolutions/{int(resolution)}"
+                if key not in self._h5:
+                    avail = (self._h5.keys("resolutions")
+                             if "resolutions" in self._h5 else [])
+                    raise ValueError(f"resolution {resolution} not in {path}; "
+                                     f"available: {avail}")
+                self._g = key + "/"       # path prefix of the resolution
+            else:
+                self._g = ""
+        except BaseException:
+            self._h5.close()
+            raise
         # metadata caches: chromnames/chrom_offset are re-consulted many
         # times per fetch (membership checks, bin ranges, weights); at 1kb
         # genome scale the HDF5 re-reads add up
@@ -64,19 +64,19 @@ class CoolFile:
     # -- metadata ----------------------------------------------------------
     @property
     def binsize(self) -> int:
-        return int(self._g.attrs["bin-size"])
+        return int(self._h5.attrs(self._g)["bin-size"])
 
     @property
     def chromnames(self) -> list[str]:
         if self._chromnames is None:
             self._chromnames = [
                 c.decode() if isinstance(c, bytes) else str(c)
-                for c in self._g["chroms/name"][:]]
+                for c in self._h5.read(self._g + "chroms/name")]
         return self._chromnames
 
     @property
     def chromsizes(self) -> np.ndarray:
-        return self._g["chroms/length"][:]
+        return self._h5.read(self._g + "chroms/length")
 
     def chrom_index(self, name: str) -> int:
         try:
@@ -88,33 +88,27 @@ class CoolFile:
     def _chrom_bin_range(self, name: str) -> tuple[int, int]:
         ci = self.chrom_index(name)
         if self._chrom_offset is None:
-            self._chrom_offset = self._g["indexes/chrom_offset"][:]
+            self._chrom_offset = self._h5.read(
+                self._g + "indexes/chrom_offset")
         off = self._chrom_offset
         return int(off[ci]), int(off[ci + 1])
 
     def weights(self, name: str, column: str = "weight") -> np.ndarray:
         lo, hi = self._chrom_bin_range(name)
-        bins = self._g["bins"]
-        if column not in bins:
+        name = f"{self._g}bins/{column}"
+        if name not in self._h5:
             raise ValueError(f"balance column {column!r} not in {self.path}")
-        return bins[column][lo:hi].astype(np.float64)
+        return self._h5.read(name, lo, hi, np.float64)
 
     def _read_pixels(self, p0: int, p1: int):
-        """The three pixel columns for rows [p0, p1), widened to
-        i64/f64 DURING the HDF5 read (read_direct converts in-library —
-        no post-read .astype pass; at 9.3M rows those three extra numpy
-        copies cost more than the reads themselves on a throttled VM)."""
-        px = self._g["pixels"]
-        n = p1 - p0
-        b1 = np.empty(n, np.int64)
-        b2 = np.empty(n, np.int64)
-        v = np.empty(n, np.float64)
-        if n:
-            sel = np.s_[p0:p1]
-            px["bin1_id"].read_direct(b1, sel)
-            px["bin2_id"].read_direct(b2, sel)
-            px["count"].read_direct(v, sel)
-        return b1, b2, v
+        """The three pixel columns for rows [p0, p1), widened to i64/f64
+        as each chunk is copied out (no post-read .astype pass; at 9.3M
+        rows those three extra numpy copies cost more than the reads
+        themselves on a throttled VM)."""
+        px = self._g + "pixels/"
+        return (self._h5.read(px + "bin1_id", p0, p1, np.int64),
+                self._h5.read(px + "bin2_id", p0, p1, np.int64),
+                self._h5.read(px + "count", p0, p1, np.float64))
 
     def fetch_band(self, chrom: str, distance_bp: int,
                    balance: str | bool = True):
@@ -125,7 +119,7 @@ class CoolFile:
         lo, hi = self._chrom_bin_range(chrom)
         # slice only this chromosome's rows of the genome-wide index
         # (~25MB at 1kb genome scale if read whole)
-        b1off = self._g["indexes/bin1_offset"][lo:hi + 1]
+        b1off = self._h5.read(self._g + "indexes/bin1_offset", lo, hi + 1)
         p0, p1 = int(b1off[0]), int(b1off[-1])
         b1, b2, v = self._read_pixels(p0, p1)
 
@@ -163,7 +157,7 @@ class CoolFile:
         a, b = (chrom2, chrom1) if flip else (chrom1, chrom2)
         alo, ahi = self._chrom_bin_range(a)
         blo, bhi = self._chrom_bin_range(b)
-        b1off = self._g["indexes/bin1_offset"][alo:ahi + 1]
+        b1off = self._h5.read(self._g + "indexes/bin1_offset", alo, ahi + 1)
         p0, p1 = int(b1off[0]), int(b1off[-1])
         b1, b2, v = self._read_pixels(p0, p1)
         keep = (b2 >= blo) & (b2 < bhi)

@@ -14,6 +14,14 @@
 //   * per plane, partials over the support: min |L| and sum |L|.
 // Valid == 0 slots (batch padding) do no work and write zero partials.
 //
+// A launch computes the row tiles [t_lo, t_hi) of each block from a window
+// of its dense rows, [base, base + held) (the whole block: base 0, held N,
+// all tiles). The reflect boundary stays the block's (N); only the read
+// index shifts by base. The window holds the tiles' rows plus R + 1 on
+// each side (the rows a tile's slab reads), so the tiles of a launch are
+// bit for bit those of the whole-block launch: a block's rows can be split
+// over devices on tile boundaries and the parts concatenated.
+//
 // What bounds it on the H100: FP32 FMAs. The ladder (1.6, 3.2) has 392
 // nonzero taps over its 24 sigmas, so two separable passes cost 784 FMA per
 // band cell against 16 bytes of input read once: compute-bound, ~67 TFLOP/s
@@ -185,19 +193,21 @@ __device__ __forceinline__ void hpass_n(int L, float (&acc)[HW],
   }
 }
 
-// The tile's band cells band[b, i, j - i] (0 <= j - i < DB, i < N) for
-// rows i in [r0, r0 + TR) and columns j in [c0, c0 + TC): from sv / ss
-// (row-major, pitch TC + 1) or, when they are null, the empty state
-// (0, -1). Neighbouring threads write neighbouring band cells.
+// The tile's band cells band[b, i - row0, j - i] (0 <= j - i < DB, i < N)
+// for rows i in [r0, r0 + TR) and columns j in [c0, c0 + TC), in the
+// launch's band of out_rows rows from row0: from sv / ss (row-major, pitch
+// TC + 1) or, when they are null, the empty state (0, -1). Neighbouring
+// threads write neighbouring band cells.
 __device__ __forceinline__ void store_band(float* __restrict__ band_v,
                                            int* __restrict__ band_sig, int b,
-                                           int N, int DB, int r0, int c0,
+                                           int N, int DB, int row0,
+                                           int out_rows, int r0, int c0,
                                            const float* sv, const int* ss) {
   for (int e = threadIdx.x; e < TR * TC; e += THREADS) {
     const int ir = e / TC, jc = e % TC;
     const int i = r0 + ir, d = c0 + jc - i;
     if (i < N && d >= 0 && d < DB) {
-      const size_t at = ((size_t)b * N + i) * DB + d;
+      const size_t at = ((size_t)b * out_rows + i - row0) * DB + d;
       band_v[at] = sv ? sv[ir * (TC + 1) + jc] : 0.f;
       band_sig[at] = ss ? ss[ir * (TC + 1) + jc] : -1;
     }
@@ -214,7 +224,8 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
                         int* __restrict__ band_sig,
                         float* __restrict__ parts,
                         int N, int DB, int R, int n_octaves,
-                        int tiles_per_row) {
+                        int tiles_per_row, int base, int held, int t_lo,
+                        int out_rows) {
   extern __shared__ float smem[];
   const int T = 2 * R + 1;
   const int S = n_octaves * BLURS;
@@ -232,10 +243,11 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
   float* s_part = (float*)(s_radii + S);     // [2][P][NWARP]
 
   const int b = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int ti = tile / tiles_per_row;
+  const int tile = blockIdx.x;               // the launch's tile
+  const int ti = t_lo + tile / tiles_per_row;
+  const int row0 = t_lo * TR;                // the launch's first band row
   const int r0 = ti * TR;
-  const int c0 = r0 + (tile - ti * tiles_per_row) * TC;
+  const int c0 = r0 + (tile % tiles_per_row) * TC;
   const int tid = threadIdx.x;
   const int g = tid & 31;                    // blur row: dense r0 - 1 + g
   const int warp = tid >> 5;                 // tile columns CELLS * warp + o
@@ -249,7 +261,8 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
       part[p] = mn;
       part[P + p] = 0.f;
     }
-    store_band(band_v, band_sig, b, N, DB, r0, c0, nullptr, nullptr);
+    store_band(band_v, band_sig, b, N, DB, row0, out_rows, r0, c0, nullptr,
+               nullptr);
     return;
   }
 
@@ -257,13 +270,13 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
   // the halo rows and own no cell)
   const int i = r0 - 1 + g;
   const int j0 = c0 + CELLS * warp;
-  const float* nzb = nzf + (size_t)b * N * N;
+  const float* nzb = nzf + (size_t)b * held * N;
   unsigned nz = 0;
 #pragma unroll
   for (int o = 0; o < CELLS; ++o) {
     const int d = j0 + o - i;
     if (g >= 1 && g <= TR && i < N && j0 + o < N && d >= 0 && d < DB &&
-        __ldg(nzb + (size_t)i * N + j0 + o) > 0.5f)
+        __ldg(nzb + (size_t)(i - base) * N + j0 + o) > 0.5f)
       nz |= 1u << o;
   }
   if (!__syncthreads_or(nz != 0)) {
@@ -272,15 +285,19 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
       part[p] = INFINITY;
       part[P + p] = 0.f;
     }
-    store_band(band_v, band_sig, b, N, DB, r0, c0, nullptr, nullptr);
+    store_band(band_v, band_sig, b, N, DB, row0, out_rows, r0, c0, nullptr,
+               nullptr);
     return;
   }
 
   // in flight together: this thread's sigma radius (S <= THREADS), then
   // the slab, eight loads per thread at a time; slab cell (sr, sc) holds
-  // dense (r0 - 1 - R + sr, c0 - 1 - R + sc)
+  // dense (r0 - 1 - R + sr, c0 - 1 - R + sc), at row reflect(...) - base
+  // of the window. Every cell that feeds a blur inside the matrix lies in
+  // the window; the clamp keeps the other cells' reads in bounds (their
+  // blurs are zeroed)
   const int rk = tid < S ? __ldg(radii + tid) : 0;
-  const float* blk = cs + (size_t)b * N * N;
+  const float* blk = cs + (size_t)b * held * N;
   constexpr int BATCH = 8;
   for (int k0 = tid; k0 < SR * SW; k0 += BATCH * THREADS) {
     float v[BATCH];
@@ -288,7 +305,8 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
     for (int e = 0; e < BATCH; ++e) {
       const int k = k0 + e * THREADS;
       const int sr = k / SW, sc = k - (k / SW) * SW;
-      const int gi = reflect(r0 - 1 - R + sr, N);
+      const int gi =
+          min(max(reflect(r0 - 1 - R + sr, N) - base, 0), held - 1);
       const int gj = reflect(c0 - 1 - R + sc, N);
       v[e] = k < SR * SW ? __ldg(blk + (size_t)gi * N + gj) : 0.f;
     }
@@ -454,15 +472,19 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
     part[p] = tmn;
     part[P + p] = tsm;
   }
-  store_band(band_v, band_sig, b, N, DB, r0, c0, s_bv, s_bs);
+  store_band(band_v, band_sig, b, N, DB, row0, out_rows, r0, c0, s_bv,
+             s_bs);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`. Geometry (tiles_per_row, smem_bytes) and the
-// per-sigma radii come from the Python wrapper
+// Launch on `stream`: the row tiles [t_lo, t_hi) of each block, from its
+// dense rows [base, base + held) (cs and nzf are [B, held, N]); band_v and
+// band_sig are [B, min(TR t_hi, N) - TR t_lo, DB], parts [B, (t_hi - t_lo)
+// tiles_per_row, 2P]. Geometry (tiles_per_row, smem_bytes, the window) and
+// the per-sigma radii come from the Python wrapper
 // (mustache_tpu_torch/kernels/fused_ladder.py), the single source of those
 // formulas. The kernel's shared-memory attributes are set once per device,
 // and again only when a launch needs more than was set. Returns
@@ -470,12 +492,15 @@ extern "C" {
 int mtt_fused_ladder_nms(const float* cs, const float* nzf, const int* valid,
                          const float* taps, const int* radii, float* band_v,
                          int* band_sig, float* parts, int B, int N, int DB,
-                         int R, int n_octaves, int tiles_per_row,
-                         size_t smem_bytes, void* stream) {
+                         int R, int n_octaves, int tiles_per_row, int base,
+                         int held, int t_lo, int t_hi, size_t smem_bytes,
+                         void* stream) {
   constexpr int MAX_DEVICES = 64;
   static size_t smem_set[MAX_DEVICES] = {};
   if (B <= 0 || N <= 0 || DB <= 0 || R < 0 || n_octaves <= 0 ||
-      BLURS * n_octaves > THREADS || tiles_per_row <= 0)
+      BLURS * n_octaves > THREADS || tiles_per_row <= 0 || base < 0 ||
+      held <= 0 || base + held > N || t_lo < 0 || t_hi <= t_lo ||
+      t_hi > (N + TR - 1) / TR)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -492,12 +517,12 @@ int mtt_fused_ladder_nms(const float* cs, const float* nzf, const int* valid,
     if (e != cudaSuccess) return (int)e;
     smem_set[dev] = smem_bytes;
   }
-  const int n_row_tiles = (N + TR - 1) / TR;
-  const dim3 grid(n_row_tiles * tiles_per_row, B);
+  const int out_rows = min(t_hi * TR, N) - t_lo * TR;
+  const dim3 grid((t_hi - t_lo) * tiles_per_row, B);
   fused_ladder_nms_kernel<<<grid, THREADS, smem_bytes,
                             (cudaStream_t)stream>>>(
       cs, nzf, valid, taps, radii, band_v, band_sig, parts, N, DB, R,
-      n_octaves, tiles_per_row);
+      n_octaves, tiles_per_row, base, held, t_lo, out_rows);
   return (int)cudaGetLastError();
 }
 

@@ -88,11 +88,47 @@ def ladder_radii(kernels: torch.Tensor, R: int) -> torch.Tensor:
     return (R - first).to(torch.int32)
 
 
-def _check(cs, nzf, kernels, valid, R, n_octaves, planes_per_octave, DB):
-    B, N, N2 = cs.shape
-    if N != N2 or nzf.shape != cs.shape:
+def row_tiles(N: int) -> int:
+    """Row tiles of an ``N``-row block."""
+    return -(-N // TILE_ROWS)
+
+
+def row_cuts(N: int, n_parts: int) -> list[int]:
+    """Balanced cuts of the block's row tiles into ``n_parts`` contiguous
+    ranges: part p computes the tiles ``[cuts[p], cuts[p + 1])`` (an empty
+    range when there are fewer tiles than parts). The cuts sit on
+    multiples of ``TILE_ROWS``, so a part's tiles are exactly the tiles of
+    the whole-block launch."""
+    nt = row_tiles(N)
+    return [p * nt // n_parts for p in range(n_parts + 1)]
+
+
+def halo(R: int) -> int:
+    """Rows a window holds beyond its tiles on each side: the ladder
+    radius plus the NMS ring (the rows a tile's slab reads beyond it)."""
+    return R + 1
+
+
+def window_rows(N: int, t_lo: int, t_hi: int, R: int) -> tuple[int, int]:
+    """The dense rows ``[w0, w1)`` that the tiles ``[t_lo, t_hi)`` read:
+    their rows plus :func:`halo` on each side, clamped to the block."""
+    return (max(0, t_lo * TILE_ROWS - halo(R)),
+            min(N, t_hi * TILE_ROWS + halo(R)))
+
+
+def _check(cs, nzf, kernels, valid, R, n_octaves, planes_per_octave, DB,
+           N, base, t_lo, t_hi):
+    B, held, N2 = cs.shape
+    if N2 != N or nzf.shape != cs.shape:
         raise ValueError(f"cs {tuple(cs.shape)} / nzf {tuple(nzf.shape)} "
-                         "must both be [B, N, N]")
+                         f"must both be [B, rows, N={N}]")
+    if not (0 <= t_lo < t_hi <= row_tiles(N)):
+        raise ValueError(f"row tiles [{t_lo}, {t_hi}) outside the block's "
+                         f"{row_tiles(N)}")
+    w0, w1 = window_rows(N, t_lo, t_hi, R)
+    if base > w0 or base + held < w1:
+        raise ValueError(f"rows [{base}, {base + held}) do not hold the "
+                         f"window [{w0}, {w1}) of tiles [{t_lo}, {t_hi})")
     if planes_per_octave + 3 != BLURS_PER_OCTAVE:
         raise ValueError("the ladder has 12 blurs per octave (9 planes)")
     if kernels.shape != (BLURS_PER_OCTAVE * n_octaves, 2 * R + 1):
@@ -111,23 +147,47 @@ def _check(cs, nzf, kernels, valid, R, n_octaves, planes_per_octave, DB):
         raise ValueError(f"valid must be [B]={B} on {cs.device}")
 
 
-def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
-                             planes_per_octave: int, DB: int, valid=None,
-                             radii=None):
-    """Band best-state from the sentinel-filled blocks (see module doc).
+def reduce_parts(parts: torch.Tensor, P: int):
+    """``(locs, sums)`` ``[B, P]`` from the per-tile partials ``[B, T,
+    2P]``: min over tiles (tiles without support carry +inf, pad slots 0)
+    and sum over tiles. The sums go slot by slot: a reduction over the
+    whole batch may split its work by the batch size, and a block's sums
+    must not depend on the batch it rode in (a sharded run batches the
+    same blocks differently)."""
+    locs = parts[:, :, :P].amin(dim=1)
+    sums = torch.stack([parts[b, :, P:].sum(dim=0)
+                        for b in range(parts.shape[0])])
+    return locs, sums
 
-    ``cs``/``nzf``: [B, N, N] f32; ``kernels``: [S, 2R+1] f32 ladder taps
-    (``scalespace.ladder_tensor``); ``valid``: optional [B] int tensor,
-    0 marks a pad slot; ``radii``: optional [S] int32 tensor of each
-    sigma's radius (``scalespace.radii_tensor``), derived from the taps
-    when omitted. CPU tensors run the plain version; CUDA tensors launch
-    the kernel."""
+
+def fused_ladder_window(cs, nzf, kernels, *, R: int, n_octaves: int,
+                        planes_per_octave: int, DB: int, N: int | None = None,
+                        base: int = 0, t_lo: int = 0, t_hi: int | None = None,
+                        valid=None, radii=None):
+    """The row-window launch: the band state of the row tiles ``[t_lo,
+    t_hi)`` of ``N``-row blocks from a window of their rows.
+
+    ``cs``/``nzf``: ``[B, rows, N]`` f32, the dense rows ``[base, base +
+    rows)`` of each sentinel-filled block and its support (they must hold
+    :func:`window_rows`; the whole block by default). The reflect
+    boundary stays the block's: only the read index shifts by ``base``.
+    Returns ``(band_v [B, n, DB], band_sig [B, n, DB], parts [B, T,
+    2P])``: the band rows ``[30 t_lo, min(30 t_hi, N))`` (n of them) and
+    the per-tile partials of the window's T tiles, in tile order (min |L|
+    then sum |L| per plane; :func:`reduce_parts` reduces them). Launches
+    of the parts of a block, concatenated in order, equal the whole-block
+    launch bit for bit. CPU tensors run the plain version, whose tiles
+    are whole row tiles; CUDA tensors launch the kernel."""
     global LAUNCHES
-    _check(cs, nzf, kernels, valid, R, n_octaves, planes_per_octave, DB)
+    B, held, Nc = cs.shape
+    N = Nc if N is None else N
+    t_hi = row_tiles(N) if t_hi is None else t_hi
+    _check(cs, nzf, kernels, valid, R, n_octaves, planes_per_octave, DB,
+           N, base, t_lo, t_hi)
+    kw = dict(R=R, n_octaves=n_octaves, planes_per_octave=planes_per_octave,
+              DB=DB, N=N, base=base, t_lo=t_lo, t_hi=t_hi, valid=valid)
     if cs.device.type == "cpu":
-        return fused_ladder_nms_reference(
-            cs, nzf, kernels, R=R, n_octaves=n_octaves,
-            planes_per_octave=planes_per_octave, DB=DB, valid=valid)
+        return _plain_parts(cs, nzf, kernels, **kw)
     if cs.device.type != "cuda":
         raise ValueError(f"unsupported device {cs.device}")
     if not kernel_fits(R, n_octaves):
@@ -136,7 +196,6 @@ def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
     from mustache_tpu_torch.kernels.build import load
 
     lib = load("fused_ladder", bind)
-    B, N, _ = cs.shape
     dev = cs.device
     P = n_octaves * planes_per_octave
     cs, nzf, kernels = cs.contiguous(), nzf.contiguous(), kernels.contiguous()
@@ -149,36 +208,50 @@ def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
     radii = radii.contiguous()
     valid = (torch.ones(B, dtype=torch.int32, device=dev) if valid is None
              else valid.to(torch.int32).contiguous())
-    # the kernel writes every band cell (tiles cover the band exactly)
-    band_v = torch.empty((B, N, DB), dtype=torch.float32, device=dev)
-    band_sig = torch.empty((B, N, DB), dtype=torch.int32, device=dev)
-    parts = torch.empty((B, n_tiles(N, DB), 2 * P), dtype=torch.float32,
-                        device=dev)
+    rows = min(t_hi * TILE_ROWS, N) - t_lo * TILE_ROWS
+    # the kernel writes every band cell of its rows (tiles cover the band
+    # exactly)
+    band_v = torch.empty((B, rows, DB), dtype=torch.float32, device=dev)
+    band_sig = torch.empty((B, rows, DB), dtype=torch.int32, device=dev)
+    parts = torch.empty((B, (t_hi - t_lo) * tiles_per_row(DB), 2 * P),
+                        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mtt_fused_ladder_nms(
             cs.data_ptr(), nzf.data_ptr(), valid.data_ptr(),
             kernels.data_ptr(), radii.data_ptr(), band_v.data_ptr(),
             band_sig.data_ptr(), parts.data_ptr(), B, N, DB, R, n_octaves,
-            tiles_per_row(DB), smem_bytes(R, n_octaves), stream)
+            tiles_per_row(DB), base, held, t_lo, t_hi,
+            smem_bytes(R, n_octaves), stream)
     if rc != 0:
         raise RuntimeError("fused_ladder_nms launch failed: "
                            + lib.mtt_error_string(rc).decode())
     LAUNCHES += 1
-    # deterministic cross-tile reduction of the per-tile partials (tiles
-    # without support carry +inf / 0; pad slots 0 / 0). The sums go slot
-    # by slot: a reduction over the whole batch may split its work by the
-    # batch size, and a block's sums must not depend on the batch it rode
-    # in (a sharded run batches the same blocks differently)
-    locs = parts[:, :, :P].amin(dim=1)
-    sums = torch.stack([parts[b, :, P:].sum(dim=0) for b in range(B)])
-    return band_v, band_sig, locs, sums
+    return band_v, band_sig, parts
+
+
+def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
+                             planes_per_octave: int, DB: int, valid=None,
+                             radii=None):
+    """Band best-state from the sentinel-filled blocks (see module doc).
+
+    ``cs``/``nzf``: [B, N, N] f32; ``kernels``: [S, 2R+1] f32 ladder taps
+    (``scalespace.ladder_tensor``); ``valid``: optional [B] int tensor,
+    0 marks a pad slot; ``radii``: optional [S] int32 tensor of each
+    sigma's radius (``scalespace.radii_tensor``), derived from the taps
+    when omitted. CPU tensors run the plain version; CUDA tensors launch
+    the kernel (the whole-block case of :func:`fused_ladder_window`)."""
+    band_v, band_sig, parts = fused_ladder_window(
+        cs, nzf, kernels, R=R, n_octaves=n_octaves,
+        planes_per_octave=planes_per_octave, DB=DB, valid=valid, radii=radii)
+    return (band_v, band_sig) + reduce_parts(
+        parts, n_octaves * planes_per_octave)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """ctypes signatures of csrc/fused_ladder.cu's C entry points."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.mtt_fused_ladder_nms.argtypes = [vp] * 8 + [ci] * 6 + [
+    lib.mtt_fused_ladder_nms.argtypes = [vp] * 8 + [ci] * 10 + [
         ctypes.c_size_t, vp]
     lib.mtt_fused_ladder_nms.restype = ci
     lib.mtt_error_string.argtypes = [ci]
@@ -223,59 +296,117 @@ def _blur_octave(cpad: torch.Tensor, taps: torch.Tensor, N: int):
     return g[0]
 
 
-def fused_ladder_nms_reference(cs, nzf, kernels, *, R: int, n_octaves: int,
-                               planes_per_octave: int, DB: int, valid=None):
-    """Plain PyTorch version of the fused kernel: same contract, one block
-    and one octave at a time, on the band where the support lies: the
-    octave's 12 blurs at the band cells (``ladder.band_blur``, banded
-    Toeplitz matmuls over the symmetric-padded block, the kernel's reflect
-    boundary), the DoG planes and their 3x3 maxima in band coordinates
-    (``ladder.max3x3_band``, equal to the dense filter wherever the
-    support can lie, 2 <= d <= DB - 3), then the NMS predicate, the
-    running best and the support partials per plane. Detections need
-    support, so nothing outside the band can change."""
-    from types import SimpleNamespace
+def _reflect(idx: torch.Tensor, N: int) -> torch.Tensor:
+    """numpy 'symmetric' reflection of indices in [-N, 2N) into [0, N)."""
+    idx = torch.where(idx < 0, -1 - idx, idx)
+    return torch.where(idx >= N, 2 * N - 1 - idx, idx)
 
-    from mustache_tpu_torch.detect import band_of
-    from mustache_tpu_torch.ladder import band_blur, max3x3_band
 
-    B, N, _ = cs.shape
+def padded_window(win: torch.Tensor, N: int, R: int, base: int, g0: int,
+                  rows: int) -> torch.Tensor:
+    """The symmetric-padded ``N``-row block from padded row and column
+    ``g0`` (``out[..., r, c] = padded[g0 + r, g0 + c]``), for the band
+    rows ``[g0, g0 + rows)``, read from the dense rows ``[base, base +
+    held)`` that ``win`` ``[..., held, N]`` holds: ``rows + 2R`` rows
+    (fewer at the block's end) and every padded column from ``g0``. Rows
+    outside ``win`` read its nearest row: they feed only band rows
+    outside ``[g0, g0 + rows)`` that are within one slab of them, never
+    those rows themselves. The whole block is ``base = g0 = 0``,
+    ``rows = N`` (:func:`_symmetric_pad`)."""
+    dev = win.device
+    ri = torch.arange(g0 - R, min(g0 + rows + R, N + R), device=dev)
+    ri = (_reflect(ri, N) - base).clamp(0, win.shape[-2] - 1)
+    ci = _reflect(torch.arange(g0 - R, N + R, device=dev), N)
+    return win[..., ri, :][..., ci]
+
+
+def _plain_parts(cs, nzf, kernels, *, R: int, n_octaves: int,
+                 planes_per_octave: int, DB: int, N: int, base: int,
+                 t_lo: int, t_hi: int, valid=None):
+    """The plain version of :func:`fused_ladder_window` (same arguments
+    and outputs), one block and one octave at a time, on the band where
+    the support lies: the octave's 12 blurs at the band cells of the
+    window's rows and their NMS ring (``ladder.band_blur``, banded
+    Toeplitz matmuls over the symmetric-padded block, the kernel's
+    reflect boundary; started on a ``ladder.SLAB`` boundary, so each cell
+    is the whole block's bit for bit), the DoG planes and their 3x3 maxima
+    in band coordinates (``ladder.max3x3_band``, equal to the dense filter
+    wherever the support can lie, 2 <= d <= DB - 3), then the NMS
+    predicate, the running best and the support partials per plane and
+    row tile (its tiles are whole row tiles). Detections need support, so
+    nothing outside the band can change."""
+    from mustache_tpu_torch.ladder import (
+        SLAB, max3x3_band, nms_will, ring_rows, window_blur,
+    )
+
+    B = cs.shape[0]
     dev = cs.device
     P = n_octaves * planes_per_octave
-    band_v = torch.zeros((B, N, DB), dtype=torch.float32, device=dev)
-    band_sig = torch.full((B, N, DB), -1, dtype=torch.int32, device=dev)
-    locs = torch.zeros((B, P), dtype=torch.float32, device=dev)
-    sums = torch.zeros((B, P), dtype=torch.float32, device=dev)
-    rows = torch.arange(N, device=dev)[:, None].expand(N, DB)
-    geom = SimpleNamespace(N=N, band_il=rows,
-                           band_yl=rows + torch.arange(DB, device=dev))
+    row0 = t_lo * TILE_ROWS
+    rows = min(t_hi * TILE_ROWS, N) - row0
+    nt = t_hi - t_lo
+    band_v = torch.zeros((B, rows, DB), dtype=torch.float32, device=dev)
+    band_sig = torch.full((B, rows, DB), -1, dtype=torch.int32, device=dev)
+    parts = torch.zeros((B, nt, 2 * P), dtype=torch.float32, device=dev)
+    # the blurs from a slab boundary at or before the window's NMS ring
+    g0 = SLAB * (max(row0 - 1, 0) // SLAB)
+    geom = ring_rows(N, DB, row0, rows, dev)
+    i = torch.arange(row0, row0 + rows, device=dev)[:, None]
+    j = i + torch.arange(DB, device=dev)
+    pad_rows = nt * TILE_ROWS - rows
     inf = torch.tensor(float("inf"), device=dev)
     valid_h = None if valid is None else valid.cpu().tolist()
     for b in range(B):
         if valid_h is not None and not valid_h[b]:
             continue
-        nz = band_of(nzf[b] > 0.5, DB, False)
+        nz = (j < N) & (nzf[b, (i - base).expand(-1, DB),
+                            j.clamp(max=N - 1)] > 0.5)
         nzw = nz.to(torch.float32)
-        cpad = _symmetric_pad(cs[b], R)[None]
+        X = padded_window(cs[b], N, R, base, g0,
+                          min(N, row0 + rows + 1) - g0)[None]
         best_v = band_v[b]
         best_sig = band_sig[b]
         for o in range(n_octaves):
-            G = band_blur(cpad, kernels[o * BLURS_PER_OCTAVE:
-                                        (o + 1) * BLURS_PER_OCTAVE], N, DB)[0]
-            L = G[:-1] - G[1:]                  # [11, N, DB] DoG planes
+            G = window_blur(X, kernels[o * BLURS_PER_OCTAVE:
+                                       (o + 1) * BLURS_PER_OCTAVE], N, DB,
+                            g0, row0, rows)[0]
+            L = G[:-1] - G[1:]                  # [11, rows + 2, DB] DoG
             del G
-            M = max3x3_band(geom, L)
-            for j in range(1, planes_per_octave + 1):
-                plane = o * planes_per_octave + j - 1
-                Lp, Lc, Ln = L[j - 1], L[j], L[j + 1]
-                mP, mC, mN = M[j - 1], M[j], M[j + 1]
+            M = max3x3_band(geom, L)[:, 1:-1]
+            L = L[:, 1:-1]
+            for jj in range(1, planes_per_octave + 1):
+                plane = o * planes_per_octave + jj - 1
+                Lc = L[jj]
                 al = Lc.abs()
-                locs[b, plane] = torch.where(nz, al, inf).amin()
-                sums[b, plane] = (al * nzw).sum()
-                will = (nz & (Lc > best_v) & (Lc == mC)
-                        & ((Lp == mP) | (Ln == mN))
-                        & (Lc > mP) & (Lc > mN))
+                tmin = F.pad(torch.where(nz, al, inf), (0, 0, 0, pad_rows),
+                             value=float("inf"))
+                tsum = F.pad(al * nzw, (0, 0, 0, pad_rows))
+                parts[b, :, plane] = tmin.reshape(nt, -1).amin(dim=1)
+                parts[b, :, P + plane] = tsum.reshape(nt, -1).sum(dim=1)
+                will = nms_will(L[jj - 1], Lc, L[jj + 1], M[jj - 1], M[jj],
+                                M[jj + 1], nz, best_v)
                 best_v.copy_(torch.where(will, Lc, best_v))
                 best_sig.copy_(torch.where(will, plane, best_sig))
             del L, M
-    return band_v, band_sig, locs, sums
+    return band_v, band_sig, parts
+
+
+def fused_ladder_nms_reference(cs, nzf, kernels, *, R: int, n_octaves: int,
+                               planes_per_octave: int, DB: int, valid=None,
+                               N: int | None = None, base: int = 0,
+                               t_lo: int = 0, t_hi: int | None = None):
+    """Plain PyTorch version of the fused kernel: same contract as
+    :func:`fused_ladder_nms_batched` (``(band_v, band_sig, locs,
+    sums)``), and of a row window (``N``, ``base``, ``t_lo``, ``t_hi`` as
+    :func:`fused_ladder_window` takes them: ``cs``/``nzf`` then hold the
+    dense rows ``[base, ...)``, the band state covers the window's rows
+    and ``locs``/``sums`` reduce its tiles only). See
+    :func:`_plain_parts`."""
+    N = cs.shape[-1] if N is None else N
+    t_hi = row_tiles(N) if t_hi is None else t_hi
+    band_v, band_sig, parts = _plain_parts(
+        cs, nzf, kernels, R=R, n_octaves=n_octaves,
+        planes_per_octave=planes_per_octave, DB=DB, N=N, base=base,
+        t_lo=t_lo, t_hi=t_hi, valid=valid)
+    return (band_v, band_sig) + reduce_parts(
+        parts, n_octaves * planes_per_octave)

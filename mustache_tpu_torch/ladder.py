@@ -18,11 +18,13 @@ differ from a convolution only in order (and in exact zero terms).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 
 from mustache_tpu_torch.kernels.fused_ladder import (
-    BLURS_PER_OCTAVE, _symmetric_pad,
+    BLURS_PER_OCTAVE, _symmetric_pad, padded_window,
 )
 
 _INF = float("inf")
@@ -41,10 +43,18 @@ def _toeplitz(taps: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def band_blur(cpad: torch.Tensor, taps: torch.Tensor, N: int,
-              Dl: int) -> torch.Tensor:
+              Dl: int, rows: int | None = None,
+              row0: int = 0) -> torch.Tensor:
     """Blurs of a batch of symmetric-padded blocks ``cpad`` ``[B, N+2R,
     N+2R]`` by the taps ``[S, 2R+1]``, on the band: ``[B, S, N, Dl]``,
     ``out[b, s, i, d] = G_s(b)[i, i+d]`` and 0 where ``i + d >= N``.
+
+    A row window: ``cpad`` holds the padded block from padded row and
+    column ``row0`` on (``cpad[r, c] = padded[row0 + r, row0 + c]``), and
+    the output is the band rows ``[row0, row0 + rows)`` of the ``N``-row
+    block. With ``row0`` a multiple of ``SLAB`` every output cell is the
+    whole block's, bit for bit: the slabs are the same matmuls on the
+    same data.
 
     Vertical pass: slab k (rows ``[kh, kh+h)``) multiplies the Toeplitz
     ``[S, h, h+2R]`` with the padded rows ``[kh, kh+h+2R)`` and columns
@@ -53,16 +63,17 @@ def band_blur(cpad: torch.Tensor, taps: torch.Tensor, N: int,
     Its rows are sheared to band coordinates. Horizontal pass: chunks of
     ``CHUNK`` band columns, each one matmul with the shared Toeplitz
     ``[S, CHUNK+2R, CHUNK]``."""
-    B, P, _ = cpad.shape
+    B, Pr, Pc = cpad.shape
     S, W = taps.shape
     R = (W - 1) // 2
+    rows = N - row0 if rows is None else rows
     h, k = SLAB, CHUNK
     nc = -(-Dl // k)
     E = nc * k + 2 * R                 # band columns the chunks read
-    nslab = -(-N // h)
+    nslab = -(-rows // h)
     wq = h + E - 1                     # padded columns one slab reads
-    rows, cols = nslab * h + 2 * R, (nslab - 1) * h + wq
-    X = F.pad(cpad, (0, max(0, cols - P), 0, max(0, rows - P)))
+    need_r, need_c = nslab * h + 2 * R, (nslab - 1) * h + wq
+    X = F.pad(cpad, (0, max(0, need_c - Pc), 0, max(0, need_r - Pr)))
     M = X.shape[-1]
     Xs = X.as_strided((B, nslab, h + 2 * R, wq),
                       (X.stride(0), h * (M + 1), M, 1))
@@ -79,8 +90,8 @@ def band_blur(cpad: torch.Tensor, taps: torch.Tensor, N: int,
                   _toeplitz(taps, k, k + 2 * R).transpose(1, 2))
     del U
     G = G.reshape(S, B, nslab, h, nc * k)[..., :Dl]
-    G = G.permute(1, 0, 2, 3, 4).reshape(B, S, nslab * h, Dl)[:, :, :N]
-    i = torch.arange(N, device=cpad.device)[:, None]
+    G = G.permute(1, 0, 2, 3, 4).reshape(B, S, nslab * h, Dl)[:, :, :rows]
+    i = torch.arange(row0, row0 + rows, device=cpad.device)[:, None]
     d = torch.arange(Dl, device=cpad.device)[None, :]
     return torch.where(i + d < N, G, 0.0)
 
@@ -113,6 +124,79 @@ def max3x3_band(geom, Lb: torch.Tensor) -> torch.Tensor:
         term = torch.where((il >= 0) & (il < N), shift(row, dx, -dx), 0.0)
         m = term if m is None else torch.maximum(m, term)
     return m
+
+
+def nms_will(Lp, Lc, Ln, mP, mC, mN, nz, best_v) -> torch.Tensor:
+    """The scale-space NMS update (``fused_ladder.py:250-255`` of the JAX
+    package): a support cell takes plane ``Lc`` where it beats the running
+    best, is its own 3x3 maximum and the scale-space maximum of its
+    neighbours ``Lp``/``Ln`` (``m*``: their 3x3 maxima)."""
+    return (nz & (Lc > best_v) & (Lc == mC) & ((Lp == mP) | (Ln == mN))
+            & (Lc > mP) & (Lc > mN))
+
+
+def ring_rows(N: int, Dl: int, row0: int, rows: int, device):
+    """Band-row geometry (``max3x3_band``'s ``N``, ``band_il``,
+    ``band_yl``) of the rows ``[row0 - 1, row0 + rows + 1)``: a window's
+    rows and its NMS ring."""
+    ext = torch.arange(row0 - 1, row0 + rows + 1, device=device)[:, None]
+    return SimpleNamespace(N=N, band_il=ext.expand(-1, Dl),
+                           band_yl=ext + torch.arange(Dl, device=device))
+
+
+def window_blur(X, taps, N: int, Dl: int, g0: int, row0: int, rows: int):
+    """Band blurs ``[B, S, rows + 2, Dl]`` of the band rows ``[row0 - 1,
+    row0 + rows + 1)`` (0 outside the block) from :func:`padded_window`'s
+    ``X``, which starts at the slab boundary ``g0``: every cell is the
+    whole block's :func:`band_blur`, bit for bit."""
+    g1 = min(N, row0 + rows + 1)
+    G = band_blur(X, taps, N, Dl, rows=g1 - g0, row0=g0)
+    return F.pad(G[:, :, max(row0 - 1, 0) - g0:],
+                 (0, 0, int(row0 == 0), int(row0 + rows == N)))
+
+
+def ladder_window(cs: torch.Tensor, nzb: torch.Tensor, taps: torch.Tensor,
+                  spec, N: int, Dl: int, *, base: int, row0: int,
+                  rows: int):
+    """The ladder route's state of the band rows ``[row0, row0 + rows)`` of
+    a batch of ``N x N`` blocks, from their sentinel-filled dense rows
+    ``cs`` ``[B, held, N]`` from ``base`` (the rows plus the ladder radius
+    and the NMS ring) and the rows' band support ``nzb`` ``[B, rows,
+    Dl]``: ``(best_v, best_sig, locs, sums)``, the running best response
+    and plane of :func:`ladder_best` (bit for bit: the blurs start on a
+    slab boundary, :func:`window_blur`) and each plane's support partials
+    over these rows, min |L| and sum |L| ``[B, P]``. The fit and log p
+    need every row's partials; ``detect.BlockDetector.join_rows`` forms
+    them."""
+    B = cs.shape[0]
+    dt, dev = cs.dtype, cs.device
+    g0 = SLAB * (max(row0 - 1, 0) // SLAB)
+    X = padded_window(cs, N, spec.radius, base, g0,
+                      min(N, row0 + rows + 1) - g0)
+    geom = ring_rows(N, Dl, row0, rows, dev)
+    nzbf = nzb.to(dt)
+    best_v = torch.zeros((B, rows, Dl), dtype=dt, device=dev)
+    best_sig = torch.full((B, rows, Dl), -1, dtype=torch.int32, device=dev)
+    locs, sums = [], []
+    ppo = spec.planes_per_octave
+    for o in range(len(spec.octave_values)):
+        Gb = window_blur(X, taps[o * BLURS_PER_OCTAVE:
+                                 (o + 1) * BLURS_PER_OCTAVE], N, Dl, g0,
+                         row0, rows)
+        L = Gb[:, :-1] - Gb[:, 1:]
+        del Gb
+        M = max3x3_band(geom, L)[..., 1:-1, :]
+        L = L[..., 1:-1, :]
+        for j in range(1, L.shape[1] - 1):
+            Lc = L[:, j]
+            al = Lc.abs()
+            locs.append(torch.where(nzb, al, _INF).amin(dim=(1, 2)))
+            sums.append((al * nzbf).sum(dim=(1, 2)))
+            will = nms_will(L[:, j - 1], Lc, L[:, j + 1], M[:, j - 1],
+                            M[:, j], M[:, j + 1], nzb, best_v)
+            best_v = torch.where(will, Lc, best_v)
+            best_sig = torch.where(will, o * ppo + j - 1, best_sig)
+    return best_v, best_sig, torch.stack(locs, 1), torch.stack(sums, 1)
 
 
 def ladder_best(cs: torch.Tensor, nzb: torch.Tensor, nz_count: torch.Tensor,
@@ -172,8 +256,7 @@ def _scan_octave(geom, Gb, plane0: int, nzb, nzbf, inv_count, best,
         logp = -(abs_lc - loc) / (mean - loc)
         if scrub_nan:
             logp = torch.where(torch.isnan(logp), 0.0, logp)
-        will = (nzb & (Lc > best_v) & (Lc == mC)
-                & ((Lp == mP) | (Ln == mN)) & (Lc > mP) & (Lc > mN))
+        will = nms_will(Lp, Lc, Ln, mP, mC, mN, nzb, best_v)
         best_v = torch.where(will, Lc, best_v)
         best_logp = torch.where(will, logp, best_logp)
         best_sig = torch.where(will, plane0 + j - 1, best_sig)

@@ -11,9 +11,18 @@ no collective in either placement (``mustache_tpu/sharding.py:132-135,
 205``), so the port needs no NCCL. A mesh is a grid of ``torch.device``
 entries; an entry may repeat a device (``["cpu"] * 4`` in the tests,
 ``["cuda:0"] * 4`` on one card), so the multi-device code runs where one
-device exists. The mesh's ``row`` axis (each block's rows split over
-devices with a halo of the ladder radius) is not ported: ``n_row > 1``
-raises (ROADMAP Queue 1).
+device exists.
+
+The mesh's ``row`` axis splits each block of the dense runner
+(:meth:`MeshRunner.__call__`, the JAX ``P("block", "row", None)``
+sharding) over the ``n_row`` entries of its block group: each entry
+uploads only its window of the block's rows (its row tiles of the fused
+kernel plus a halo of the ladder radius and the NMS ring, straight from
+the host: the torch form of GSPMD's halo exchange) and computes their
+band state; the group's first entry, the owner, gathers the parts by
+device copies, reduces the per-plane partials and runs the epilogue on
+the whole block. The band-resident pipelines run each block group's share
+on its owner (the JAX band path replicates over ``row``).
 
 Two band placements, as in the JAX package:
 
@@ -53,7 +62,8 @@ TIMEOUT = datetime.timedelta(hours=6)
 
 class Mesh:
     """A ``[n_block, n_row]`` grid of ``torch.device`` entries (the JAX
-    ``Mesh`` over axes ``("block", "row")``)."""
+    ``Mesh`` over axes ``("block", "row")``); entry ``(i, r)`` is entry
+    ``i * n_row + r`` in grid order."""
 
     def __init__(self, devices: np.ndarray):
         self.devices = devices
@@ -64,18 +74,19 @@ class Mesh:
 
     @property
     def block_devices(self) -> list[torch.device]:
+        """Each block group's owner: the grid's first column."""
         return list(self.devices[:, 0])
+
+    def row_devices(self, i: int) -> list[torch.device]:
+        """The ``n_row`` entries of block group ``i``, owner first."""
+        return list(self.devices[i])
 
 
 def make_mesh(n_block: int | None = None, n_row: int = 1,
               devices=None) -> Mesh:
-    """A (block, row) mesh over ``devices`` (default: every visible CUDA
-    device; an explicit list may repeat one). ``n_row > 1`` raises
-    ``NotImplementedError``."""
-    if n_row > 1:
-        raise NotImplementedError(
-            "mesh row axis (n_row > 1): the per-block row split with a "
-            "halo of the ladder radius is not ported yet (ROADMAP Queue 1)")
+    """A (block, row) mesh over the first ``n_block * n_row`` of
+    ``devices`` (default: every visible CUDA device; an explicit list may
+    repeat one), in the JAX order: ``devices.reshape(n_block, n_row)``."""
     if n_row < 1:
         raise ValueError(f"n_row must be >= 1, got {n_row}")
     if devices is None:
@@ -93,7 +104,8 @@ def make_mesh(n_block: int | None = None, n_row: int = 1,
             f"devices, have {nd}")
     grid = np.empty((n_block, n_row), dtype=object)
     for i in range(n_block):
-        grid[i, 0] = devs[i]
+        for r in range(n_row):
+            grid[i, r] = devs[i * n_row + r]
     return Mesh(grid)
 
 
@@ -172,8 +184,9 @@ class MeshRunner:
     launch's ``(idxs, starts)`` to :meth:`run`, which launches every
     entry's share before the first device-to-host copy and returns the
     packed rows entry-major; the pipelines restore block order with a
-    stable sort. ``launches[k]`` counts the fused-kernel launches made for
-    entry k (the kernel wrapper's own count, read around each call)."""
+    stable sort. ``launches[e]`` counts the fused-kernel launches made on
+    grid entry e (the kernel wrapper's own count, read around each call;
+    the pipelines launch on the owners)."""
 
     def __init__(self, mesh: Mesh, band_placement: str = "replicate",
                  log=None):
@@ -181,11 +194,16 @@ class MeshRunner:
             raise ValueError(f"unknown band_placement {band_placement!r}")
         self.mesh = mesh
         self.devices = mesh.block_devices
+        self.nr = mesh.shape["row"]
         self.band_placement = band_placement
         self.log = log                    # RunLog (or None) for events
         self.last_plan: RowShardPlan | None = None
         self.last_band_event: dict | None = None
-        self.launches = [0] * len(self.devices)
+        self.launches = [0] * (len(self.devices) * self.nr)
+        # bytes of dense rows each grid entry held in the last row-split
+        # call of the dense runner
+        self.last_held: list[int] = []
+        self._row_dets: dict = {}
 
     @property
     def nb(self) -> int:
@@ -291,7 +309,7 @@ class MeshRunner:
             before = fused_ladder.LAUNCHES
             with _on(dev):
                 out = detectors[k].fn_band_packed(*band, local)
-            self.launches[k] += fused_ladder.LAUNCHES - before
+            self.launches[k * self.nr] += fused_ladder.LAUNCHES - before
             pending.append((k, slots, local, out))
         rows = []
         for k, slots, local, out in pending:
@@ -311,9 +329,10 @@ class MeshRunner:
         """The dense entry (``mustache_tpu/sharding.py:262-277``):
         ``blocks`` ``[B, N, N]`` (host array or tensor) padded with zero
         blocks to a multiple of ``nb``, split into contiguous shares, each
-        detected by ``detectors[k].fn`` on its entry (all launched before
+        detected by ``detectors[k]`` on block group k (all launched before
         the first copy back); the outputs of the real blocks, as host
-        arrays in block order."""
+        arrays in block order. With ``n_row > 1`` each share's rows are
+        split over its group (:meth:`_row_split`)."""
         blocks = torch.as_tensor(blocks)
         B = blocks.shape[0]
         pad = (-B) % self.nb
@@ -321,16 +340,70 @@ class MeshRunner:
             blocks = torch.cat([blocks, blocks.new_zeros(
                 (pad,) + tuple(blocks.shape[1:]))])
         per = blocks.shape[0] // self.nb
-        outs = []
-        for k, dev in enumerate(self.devices):
-            before = fused_ladder.LAUNCHES
-            with _on(dev):
-                outs.append(detectors[k].fn(
-                    blocks[k * per:(k + 1) * per].to(dev)))
-            self.launches[k] += fused_ladder.LAUNCHES - before
+        shares = [blocks[k * per:(k + 1) * per] for k in range(self.nb)]
+        if self.nr > 1:
+            outs = self._row_split(detectors, shares)
+        else:
+            outs = []
+            for k, dev in enumerate(self.devices):
+                before = fused_ladder.LAUNCHES
+                with _on(dev):
+                    outs.append(detectors[k].fn(shares[k].to(dev)))
+                self.launches[k] += fused_ladder.LAUNCHES - before
         host = {key: np.concatenate([o[key].cpu().numpy() for o in outs])
                 for key in outs[0]}
         return {key: a[:B] for key, a in host.items()}
+
+    def _row_detector(self, det, dev: torch.device):
+        """``det`` for a row entry on ``dev``: itself where its taps live
+        there, else one detector of the same configuration per device."""
+        if det.taps.device == dev:
+            return det
+        key = (id(det), dev)
+        if key not in self._row_dets:
+            from mustache_tpu_torch.detect import build_detector
+
+            self._row_dets[key] = (det, build_detector(
+                det.cfg, det.n, device=dev, max_candidates=det.K))
+        return self._row_dets[key][1]
+
+    def _row_split(self, detectors, shares) -> list[dict]:
+        """Each group's share with its rows split over the group's row
+        entries: entry r uploads its window of every block
+        (``fused_ladder.window_rows`` of its row tiles ``row_cuts[r]``)
+        and computes its part (``BlockDetector.row_state``); once every
+        entry has launched, each owner gathers its group's parts by
+        device copies and finishes the blocks (``join_rows``)."""
+        N = shares[0].shape[-1]
+        R = detectors[0].spec.radius
+        cuts = fused_ladder.row_cuts(N, self.nr)
+        held = [0] * len(self.launches)
+        parts: list[list] = []
+        for k, share in enumerate(shares):
+            group = []
+            for r, dev in enumerate(self.mesh.row_devices(k)):
+                t_lo, t_hi = cuts[r], cuts[r + 1]
+                if t_lo == t_hi:
+                    continue                    # more entries than tiles
+                e = k * self.nr + r
+                det = self._row_detector(detectors[k], dev)
+                w0, w1 = fused_ladder.window_rows(N, t_lo, t_hi, R)
+                before = fused_ladder.LAUNCHES
+                with _on(dev):
+                    win = share[:, w0:w1].to(dev, non_blocking=True)
+                    group.append(det.row_state(win, w0, t_lo, t_hi))
+                self.launches[e] += fused_ladder.LAUNCHES - before
+                held[e] = win.numel() * win.element_size()
+            parts.append(group)
+        self.last_held = held
+        outs = []
+        for k, group in enumerate(parts):
+            owner = self.devices[k]
+            with _on(owner):
+                moved = [tuple(t.to(owner, non_blocking=True) for t in p)
+                         for p in group]
+                outs.append(detectors[k].join_rows(moved))
+        return outs
 
 
 def make_runner(mesh: Mesh, band_placement: str = "replicate",

@@ -8,6 +8,7 @@ too slow for the plain path on the CPU; ``chip_smoke.py`` phase 10 runs
 it on the card."""
 
 import numpy as np
+import pytest
 import torch
 
 from mustache_tpu_torch import dryrun
@@ -25,10 +26,21 @@ def test_entry_runs_one_block():
 def test_dryrun_multichip_on_four_cpu_entries(capsys):
     report = dryrun.dryrun_multichip(4, ["cpu"] * 4, production=False)
     out = capsys.readouterr().out
-    assert "row axis (n_row=2) is not ported and not run" in out
+    assert "dense-runner mesh={'block': 2, 'row': 2}" in out
+    assert "row split == the {'block': 4, 'row': 1} mesh" in out
     assert "detector OK" in out and "pipeline OK" in out
     assert "diff OK" in out and "production geometry: not run" in out
     assert report["mesh"] == {"block": 4, "row": 1}
+    assert report["dense_mesh"] == {"block": 2, "row": 2}
+    assert len(report["dense_held_row2"]) == 4
     assert report["pipeline_rows"] > 0 and report["diff_rows"] > 0
     assert 0 <= report["diff_rowshard_q_dist"] < 5e-3
     assert np.isfinite(report["diff_rowshard_q_dist"])
+
+
+@pytest.mark.parametrize("n,shape", [(1, (1, 1)), (2, (2, 1)), (3, (3, 1)),
+                                     (4, (2, 2)), (6, (3, 2)), (8, (4, 2))])
+def test_dense_mesh_is_the_jax_dryruns(n, shape):
+    """The dense runner's mesh splits rows over a pair only where the JAX
+    dryrun does: an even count of at least four entries."""
+    assert dryrun.dense_mesh_shape(n) == shape

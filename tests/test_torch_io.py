@@ -2,7 +2,8 @@
 package's on the same files: ``(x, y, v)`` equal exactly, array for
 array. Text (5- and 3-column, with and without a bias file, with rows
 pandas drops), HiC-Pro, ``.hic`` v6/v8/v9 written by tests/hic_writer.py,
-and ``.cool`` / ``.mcool`` where h5py is installed; plus chromosome
+and ``.cool`` / ``.mcool`` (the port's own HDF5 reader; h5py writes
+the files here and the JAX reader reads them); plus chromosome
 discovery and the size maps."""
 
 import argparse
@@ -347,12 +348,18 @@ def test_cool_and_mcool_match_jax(tmp_path):
 
 
 def test_cool_without_h5py_raises(tmp_path, monkeypatch):
-    """No h5py: opening a .cool raises the JAX reader's error; importing
-    the module never needed h5py."""
+    """No h5py: the port reads .cool and .mcool through its own HDF5
+    reader (``io/h5.py``), equal to the JAX reader's triplets read with
+    h5py before the import was blocked; only a file that is not there
+    raises (as opening it does)."""
     import builtins
 
+    from mustache_tpu.io import cool as jcool
     from mustache_tpu_torch.io import cool as tcool
 
+    cool, mcool = _cool_files(tmp_path)
+    want = jcool.read_cooler(cool, 300_000, "chr1", "chr1", True)
+    want_m = jcool.read_mcooler(mcool, 300_000, "chr2", "chr1", RES, False)
     real = builtins.__import__
 
     def no_h5py(name, *a, **k):
@@ -361,5 +368,10 @@ def test_cool_without_h5py_raises(tmp_path, monkeypatch):
         return real(name, *a, **k)
 
     monkeypatch.setattr(builtins, "__import__", no_h5py)
-    with pytest.raises(RuntimeError, match="requires h5py"):
+    got = tcool.read_cooler(cool, 300_000, "chr1", "chr1", True)
+    assert got[3] == want[3] == RES
+    _same(got[:3], want[:3])
+    _same(tcool.read_mcooler(mcool, 300_000, "chr2", "chr1", RES, False),
+          want_m)
+    with pytest.raises(FileNotFoundError):
         tcool.CoolFile(str(tmp_path / "x.cool"))

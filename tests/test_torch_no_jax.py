@@ -4,9 +4,9 @@ conftest.py) that imports every module of the port and runs
 inter-chromosomal detection (one 512^2 tile), the warmup's builds, the
 CLI on the CPU from a text file through a one-entry mesh (float32: the
 sharded runner, one 2000^2 block) and from a .hic file at float64 (one
-block), and the differential CLI on two text files (one block each).
-h5py may load only inside the .cool reader's call, which this script does
-not make."""
+block), the differential CLI on two text files (one block each), and
+the .cool reader on a file of ``tools/write_cool.py`` (the port's own
+HDF5 reader: h5py never loads)."""
 
 import os
 import subprocess
@@ -59,6 +59,13 @@ rcs.append(diff_cli.main(["-f1", txt, "-f2", txt2, "-ch", "1", "-r", "5kb",
                           "-d", "300kb", "-o", os.path.join(tmp, "d"),
                           "-pt", "0.1", "-st", "0.8",
                           "--engine-platform", "cpu"]))
+sys.path.insert(0, ROOT + "/tools")
+from write_cool import write_cool
+cool_path = os.path.join(tmp, "c.cool")
+write_cool(cool_path, [("chr1", 400 * 5000)], 5000, {"chr1": (x, y, v)},
+           count_dtype=np.float64)
+cx, cy, cv, _ = cool.read_cooler(cool_path, 300_000, "chr1", "chr1", True)
+print("COOL", len(cv), cool.cool_chrom_list(cool_path))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mustache_tpu", "pandas", "h5py"))
 print("LOOPS", len(loops), len(f64), len(inter_rows))
@@ -79,3 +86,5 @@ def test_port_imports_and_runs_without_jax():
     assert "RCS [0, 0, 0]" in out, res.stdout
     counts = next(l for l in out if l.startswith("LOOPS")).split()[1:]
     assert int(counts[0]) > 0 and int(counts[1]) > 0 and int(counts[2]) > 0
+    assert any(l.startswith("COOL ") and int(l.split()[1]) > 1000
+               and l.endswith("['chr1']") for l in out), res.stdout

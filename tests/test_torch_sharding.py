@@ -1,7 +1,7 @@
 """The port's sharding (``mustache_tpu_torch.sharding``) on the CPU: meshes
 of repeated ``"cpu"`` entries stand for several devices.
 
-* the mesh's shape and its row axis raising;
+* the mesh's shape and its (block, row) grid order;
 * ``RowShardPlan`` against the JAX package's on the same starts;
 * the dense runner against ``BlockDetector.fn``, a partial batch padded:
   bit-identical;
@@ -22,7 +22,7 @@ import torch
 
 import torch_port_cases as C
 from mustache_tpu.sharding import RowShardPlan as JaxPlan
-from mustache_tpu_torch import pipeline
+from mustache_tpu_torch import pipeline, sharding
 from mustache_tpu_torch.bandnorm import bucket_rows
 from mustache_tpu_torch.config import DetectionConfig
 from mustache_tpu_torch.detect import build_detector
@@ -77,8 +77,16 @@ def test_mesh_shapes(monkeypatch):
     assert mesh.block_devices == [CPU] * 4
     assert make_mesh(n_block=2, devices=["cpu"] * 4).shape == \
         {"block": 2, "row": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(n_block=2, n_row=2, devices=["cpu"] * 4)
+    # the JAX order: devices.reshape(n_block, n_row), owners in column 0
+    # (four named cards stand in; nothing here touches them)
+    monkeypatch.setattr(sharding, "resolve_device", torch.device)
+    cards = [torch.device(f"cuda:{i}") for i in range(5)]
+    grid = make_mesh(n_block=2, n_row=2, devices=cards)
+    assert grid.shape == {"block": 2, "row": 2}
+    assert grid.block_devices == [cards[0], cards[2]]
+    assert grid.row_devices(1) == cards[2:4]
+    assert make_runner(grid).launches == [0] * 4
+    monkeypatch.undo()
     with pytest.raises(ValueError):
         make_mesh(n_block=5, devices=["cpu"] * 4)
     assert make_runner(mesh).nb == 4 and make_runner(mesh).round_batch(5) == 8

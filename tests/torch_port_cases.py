@@ -5,6 +5,16 @@ committed golden of the JAX package's own output, shared by
 * ``--slice cpu_f64``: the float64 / host-normalize cases below, into
   ``tests/data/torch_port_cpu_f64_golden.json``, read by
   ``tests/test_torch_f64_pipeline.py`` and ``tests/test_torch_f64_diff.py``;
+* ``--slice rowaxis``: the dense runner on a 4 x 2 (block, row) mesh
+  (``ROWAXIS_*`` below), into ``tests/data/torch_port_rowaxis_golden.json``,
+  read by ``tests/test_torch_row_axis.py``;
+* ``--slice cool_card``: two small files in cooler's own layout
+  (:func:`write_cooler_layout`, a ``.cool`` and a ``.mcool`` of two
+  resolutions) and the JAX reader's triplets of them as sha256 digests,
+  into ``tests/data/torch_port_cooler_layout.{cool,mcool}`` and
+  ``tests/data/torch_port_cool_expected.json``, read by
+  ``chip_smoke.py`` phase 11 on the card (which has no h5py) and by
+  ``tests/test_torch_h5.py``;
 * ``--slice cpu_f32``: the float32 CLI, differential, inter-chromosomal
   and row-sharded runs of ``tests/test_torch_cli.py``,
   ``tests/test_torch_diff_cli.py``, ``tests/test_torch_diff.py``,
@@ -45,6 +55,8 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "torch_port_cpu_f64_golden.json")
 GOLDEN_F32 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                           "torch_port_cpu_f32_golden.json")
+GOLDEN_ROWAXIS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "data", "torch_port_rowaxis_golden.json")
 
 # name -> (synthetic_hic args (n_bins, d_px), kwargs, DetectionConfig
 # kwargs, detect_loops_coo keywords)
@@ -125,6 +137,109 @@ F32_INTER_CHUNK = 512
 # through the JAX row-sharded runner on 4 virtual CPU devices
 F32_SHARD_MAP = ((2600, 100), dict(seed=91, n_loops=30))
 F32_SHARD_KW = dict(resolution=RES, distance_bp=100 * RES, pt=0.1, st=0.8)
+
+
+# tests/test_torch_row_axis.py: the 8 blocks of tests/test_sharding.py::
+# test_sharded_equals_unsharded through the dense runner
+ROWAXIS_N, ROWAXIS_D_PX = 256, 64
+ROWAXIS_KW = dict(resolution=RES, distance_bp=ROWAXIS_D_PX * RES,
+                  max_candidates=256)
+
+
+def rowaxis_blocks(seeds=range(40, 48)):
+    """``[len(seeds), 256, 256]`` float32 blocks: each the raw contacts of
+    ``synthetic_hic(256, 64, seed, n_loops=4)`` placed densely."""
+    import numpy as np
+
+    n = ROWAXIS_N
+    blocks = np.zeros((len(seeds), n, n), dtype=np.float32)
+    for b, seed in enumerate(seeds):
+        x, y, v, _ = synthetic_hic(n, ROWAXIS_D_PX, seed=seed, n_loops=4)
+        blocks[b][x, y] = v
+    return blocks
+
+
+def write_cooler_layout(path, group="", n1=900, n2=500, d_px=80, chunk=100,
+                        n_inter=3000, seed=61, res=RES):
+    """Write (with h5py) a cooler group as cooler writes it: every column
+    chunked with gzip 6 and shuffle, ``bins/chrom`` an enum of the names,
+    string attributes of variable length (h5py's ``str``), chr1 (``n1``
+    bins) and chr2 (``n2``) maps with chr1 x chr2 pixels, NaN weights.
+    Returns the pixel count."""
+    import h5py
+    import numpy as np
+
+    x1, y1, v1, _ = synthetic_hic(n1, d_px, seed=seed, n_loops=8)
+    x2, y2, v2, _ = synthetic_hic(n2, d_px, seed=seed + 1, n_loops=6)
+    rng = np.random.default_rng(seed + 2)
+    xi, yi = rng.integers(0, n1, n_inter), rng.integers(0, n2, n_inter)
+    names = ["chr1", "chr2", "chrM"]
+    nb = [n1, n2, 4]
+    off = np.concatenate([[0], np.cumsum(nb)])
+    b1 = np.concatenate([x1, off[1] + x2, xi])
+    b2 = np.concatenate([y1, off[1] + y2, off[1] + yi])
+    cnt = np.concatenate([np.round(v1), np.round(v2),
+                          rng.integers(1, 9, n_inter)]).astype(np.int32)
+    key = b1 * off[-1] + b2
+    _, keep = np.unique(key, return_index=True)
+    order = keep[np.lexsort((b2[keep], b1[keep]))]
+    b1, b2, cnt = b1[order], b2[order], cnt[order]
+    with h5py.File(path, "a") as f:
+        g = f.require_group(group) if group else f
+
+        def col(name, data, **kw):
+            g.create_dataset(name, data=data, chunks=(min(chunk, len(data)),),
+                             compression="gzip", compression_opts=6,
+                             shuffle=True, **kw)
+
+        g.attrs.update({"format": "HDF5::Cooler", "format-version": 3,
+                        "bin-type": "fixed", "bin-size": res,
+                        "generated-by": "cooler-0.9.3",
+                        "metadata": '{"assay": "Hi-C"}',
+                        "storage-mode": "symmetric-upper"})
+        col("chroms/name", np.array(names, "S4"))
+        col("chroms/length", np.array(nb, np.int32) * res)
+        enum = h5py.enum_dtype(dict(zip(names, range(3))),
+                               basetype=np.int32)
+        col("bins/chrom", np.repeat(np.arange(3), nb).astype(np.int32),
+            dtype=enum)
+        start = np.concatenate([np.arange(n) * res for n in nb])
+        col("bins/start", start.astype(np.int32))
+        col("bins/end", (start + res).astype(np.int32))
+        w = rng.uniform(0.5, 1.5, off[-1])
+        w[::41] = np.nan
+        col("bins/weight", w)
+        col("pixels/bin1_id", b1)
+        col("pixels/bin2_id", b2)
+        col("pixels/count", cnt)
+        col("indexes/chrom_offset", off)
+        col("indexes/bin1_offset", np.searchsorted(b1, np.arange(off[-1] + 1)))
+    return len(b1)
+
+
+# chip_smoke.py phase 11's fixtures (--slice cool_card): a .cool and a
+# .mcool of two resolutions in cooler's layout, a few tens of KB
+COOL_CARD = {"cool": os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "data", "torch_port_cooler_layout.cool"),
+             "mcool": os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "data", "torch_port_cooler_layout.mcool")}
+COOL_CARD_KW = dict(n1=210, n2=100, d_px=16, chunk=48, n_inter=300)
+
+
+def write_cool_card_fixtures():
+    """Write the two files of ``COOL_CARD`` (h5py)."""
+    import h5py
+
+    for path in COOL_CARD.values():
+        if os.path.exists(path):
+            os.remove(path)
+    write_cooler_layout(COOL_CARD["cool"], **COOL_CARD_KW)
+    for res in (RES, 2 * RES):
+        kw = dict(COOL_CARD_KW, res=res)
+        kw["n1"], kw["n2"] = kw["n1"] * RES // res, kw["n2"] * RES // res
+        write_cooler_layout(COOL_CARD["mcool"], f"resolutions/{res}", **kw)
+    with h5py.File(COOL_CARD["mcool"], "a") as f:
+        f.attrs["format"] = "HDF5::MCOOL"
 
 
 def kr_vector(n: int):

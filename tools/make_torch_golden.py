@@ -48,7 +48,21 @@ modes) and writes the reference-format TSV:
 * ``rowshard_5kb``: the ``5kb`` workload through the JAX row-sharded
   runner (``make_runner(mesh, "rowshard")`` on a 4-device CPU mesh: the
   host normalize, each device's slab), sort-mode BH, to
-  ``tests/data/torch_port_chr21_5kb_rowshard_golden.tsv``.
+  ``tests/data/torch_port_chr21_5kb_rowshard_golden.tsv``;
+* ``cool_card``: two small files in cooler's layout written by h5py
+  (``tests/torch_port_cases.py::write_cool_card_fixtures``: a ``.cool``
+  and a ``.mcool`` of two resolutions, gzip 6 with shuffle, an enum, a
+  two-level chunk B-tree) to ``tests/data/torch_port_cooler_layout.
+  {cool,mcool}``, and the JAX reader's triplets of them (intra and
+  inter, balanced and not) as sha256 digests
+  (``chip_smoke.cool_digests``) to ``tests/data/torch_port_cool_expected.
+  json``;
+* ``rowaxis``: the 8 blocks of ``tests/test_sharding.py::
+  test_sharded_equals_unsharded`` (256^2, d_px 64, seeds 40-47) through
+  the JAX dense runner on a 4 x 2 ``(block, row)`` mesh of the harness's
+  8 CPU devices (GSPMD splits each block's rows over the ``row`` pair),
+  float32, sort-mode BH: each block's valid candidates ``[x, y, sigidx,
+  log q]`` and its counts, to ``tests/data/torch_port_rowaxis_golden.json``.
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--slice NAME] [--out PATH]
 """
@@ -58,6 +72,8 @@ import json
 import os
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
@@ -88,6 +104,8 @@ SLICES = {
     "rowshard_5kb": ((9629, 400), dict(seed=2021, n_loops=300,
                                        loop_strength=3.0),
                      5000, "chr21", "sort"),
+    "rowaxis": (None, None, 5000, None, "sort"),
+    "cool_card": (None, None, 5000, None, None),
 }
 DIFF_SEED2 = 2022      # the diff leg's second condition (bench.py)
 OUT = {"5kb": os.path.join(ROOT, "tests", "data",
@@ -109,10 +127,14 @@ OUT = {"5kb": os.path.join(ROOT, "tests", "data",
        "cpu_f32": os.path.join(ROOT, "tests", "data",
                                "torch_port_cpu_f32_golden.json"),
        "rowshard_5kb": os.path.join(
-           ROOT, "tests", "data", "torch_port_chr21_5kb_rowshard_golden.tsv")}
+           ROOT, "tests", "data", "torch_port_chr21_5kb_rowshard_golden.tsv"),
+       "rowaxis": os.path.join(ROOT, "tests", "data",
+                               "torch_port_rowaxis_golden.json"),
+       "cool_card": os.path.join(ROOT, "tests", "data",
+                                 "torch_port_cool_expected.json")}
 # slices run under the JAX package's test harness settings
 # (tests/conftest.py): x64 on and 8 virtual CPU devices
-HARNESS = ("cpu_f32", "rowshard_5kb")
+HARNESS = ("cpu_f32", "rowshard_5kb", "rowaxis")
 DIFF_HEADER = ("BIN1_CHR\tBIN1_START\tBIN1_END\tBIN2_CHROMOSOME\t"
                "BIN2_START\tBIN2_END\tFDR\tDETECTION_SCALE\tTAG\n")
 
@@ -291,6 +313,53 @@ def cpu_f32_golden(out):
     _dump(out, gold)
 
 
+def cool_card_golden(out):
+    """The card's ``.cool`` fixtures and the JAX reader's digests."""
+    import chip_smoke
+    import torch_port_cases as C
+    from mustache_tpu.io import cool as jcool
+
+    C.write_cool_card_fixtures()
+    gold = {"_command": "JAX_PLATFORMS=cpu python tools/make_torch_golden.py "
+                        "--slice cool_card"}
+    gold.update(chip_smoke.cool_digests(jcool, C.COOL_CARD["cool"],
+                                        C.COOL_CARD["mcool"]))
+    for path in C.COOL_CARD.values():
+        print(f"{path}: {os.path.getsize(path)} bytes")
+    _dump(out, gold)
+
+
+def rowaxis_golden(out):
+    """The JAX dense runner on a 4 x 2 (block, row) mesh."""
+    import jax
+
+    import torch_port_cases as C
+    from mustache_tpu.config import DetectionConfig
+    from mustache_tpu.detect import build_detector
+    from mustache_tpu.sharding import make_mesh, make_runner
+
+    det = build_detector(DetectionConfig(precision="float32",
+                                         **C.ROWAXIS_KW), C.ROWAXIS_N)
+    mesh = make_mesh(n_block=4, n_row=2, devices=jax.devices()[:8])
+    got = jax.tree.map(np.asarray, make_runner(mesh)(det,
+                                                    C.rowaxis_blocks()))
+    gold = {"_command": "JAX_PLATFORMS=cpu python tools/make_torch_golden.py "
+                        "--slice rowaxis",
+            "_jax": f"jax {jax.__version__} on {jax.default_backend()} "
+                    f"({len(jax.devices())} devices, mesh "
+                    f"{dict(mesh.shape)})"}
+    for b in range(got["cand_x"].shape[0]):
+        ok = got["cand_valid"][b]
+        gold[f"block{b}"] = {
+            "counts": [int(got[k][b]) for k in ("n_tested", "sig_count",
+                                                 "nz_count")],
+            "cands": [[int(x), int(y), int(s), float(q)] for x, y, s, q in zip(
+                got["cand_x"][b][ok], got["cand_y"][b][ok],
+                got["cand_sigidx"][b][ok], got["cand_logq"][b][ok])]}
+        print(f"block {b}: {len(gold[f'block{b}']['cands'])} candidates")
+    _dump(out, gold)
+
+
 def rowshard_golden(out, x, y, v, cfg, chrom):
     """The JAX row-sharded runner on a 4-device CPU mesh."""
     import jax
@@ -332,8 +401,10 @@ def main():
         jdetect._BH_MODE = bh_mode
     os.makedirs(os.path.dirname(out), exist_ok=True)
     t0 = time.time()
-    if args.slice in ("cpu_f64", "cpu_f32"):
-        (cpu_f64_golden if args.slice == "cpu_f64" else cpu_f32_golden)(out)
+    if args.slice in ("cpu_f64", "cpu_f32", "rowaxis", "cool_card"):
+        {"cpu_f64": cpu_f64_golden, "cpu_f32": cpu_f32_golden,
+         "rowaxis": rowaxis_golden,
+         "cool_card": cool_card_golden}[args.slice](out)
         print(f"-> {out} ({time.time() - t0:.1f} s, jax {jax.__version__} "
               f"on {jax.default_backend()}, BH {jdetect._BH_MODE})")
         return
