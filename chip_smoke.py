@@ -14,14 +14,19 @@ Phases, in order; any failure exits non-zero:
    N=4000/DB=2048 at 1 kb), and at the 5 kb shape with a 3-octave ladder
    (radii up to 28: the kernel's path for sigmas of more than 32 taps)
    and a 4-octave one (radius 55, 174,144 B of shared memory, the largest
-   sigma0-1.6 ladder the kernel holds), B=4 with a pad slot in the
+   sigma0-1.6 ladder the slab mode holds), and the streamed mode's
+   ladders (R <= 127): the 5 kb shape at sigma0 1.6 with 5 octaves
+   (R=110) and at sigma0 3.0 with 4 (R=103), and the 1 kb shape with 5
+   octaves; B=4 with a pad slot in the
    middle: band_sig
    equal on the support (a mismatch must be an f32 near-tie and sit on no
    significant candidate), band_v / locs / sums within rtol 2e-4, the pad
    slot empty, a second launch bit-identical; kernel, plain version and
    cuDNN's two-pass blur of the same blocks (blur only: no PyTorch call
    computes the fused function) timed with CUDA events; the kernel held
-   against its FP32 bound from the FLOP the algorithm needs;
+   against its FP32 bound from the FLOP the algorithm needs; the 2- and
+   4-octave shapes also launched in the streamed mode, bit-identical to
+   the slab mode, and timed;
 4. end to end: the bench headline workload (synthetic chr21 at 5 kb,
    6 blocks of 2000^2) through ``detect_loops_coo`` with no device given
    (the card by default) and ``write_loops``; the kernel must have
@@ -78,9 +83,9 @@ Phases, in order; any failure exits non-zero:
    against the 290-row golden under phase 4's rule, timed against the
    kernel route, and the two routes'
    detection state of the 6 blocks under CUDA events; and sigma0 1.6
-   with 5 octaves (radius 110, beyond the kernel's shared memory) on the
-   ladder route, held to the fused kernel's plain version on the card
-   under phase 4's rule;
+   with 6 octaves (radius 220, beyond the JAX package's fused gate and
+   the kernel's) on the ladder route, held to the fused kernel's plain
+   version on the card under phase 4's rule;
 9. inter-chromosomal calling and the native ``.hic`` decoder
    (``inter.py``, ``io/native/hic_decode.cpp``): a whole chr21 x chr22
    pair at 5 kb (``synthetic_inter(9342, 10164, seed=2121, n_loops=300)``,
@@ -131,7 +136,21 @@ Phases, in order; any failure exits non-zero:
    ``tools/write_cool.py`` through the CLI, held to the 290-row golden as
    in phase 5, its ingest against phase 5's ``.hic`` ingest; a small
    inter pair from ``.cool`` equal to the same pair from ``.hic``; h5py
-   never imported.
+   never imported;
+12. the kernel's streamed mode on every caller, at sigma0 1.6 with 5
+   octaves (R=110), each against the ladder route (``use_pallas="off"``)
+   on the same call: chr21 5 kb through ``detect_loops_coo`` and the CLI
+   from phase 5's ``.hic`` with ``-oc 5`` (one fused launch each, route
+   ``kernel``; rows held under phase 4's rule to the JAX golden,
+   tests/data/torch_port_chr21_5kb_oct5_golden.tsv, ``tools/
+   make_torch_golden.py --slice oct5_5kb``; walls cold and warm of both
+   routes), the 1 kb slice (rows held to the ladder route's, peak device
+   memory of both), the differential workload (one stacked launch, rows
+   held to the ladder route's under phase 7's rule; the stacked batches
+   held to the plain version and timed as in phase 7) and the row window
+   (four parts joined bit-identical to the whole-block launch, part 2 of
+   4 exact against its plain version and timed as in phase 10; the
+   dense runner on 1 x 4 entries of ``cuda:0`` equal to ``n_row = 1``).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -171,6 +190,8 @@ GOLDEN_DIFF_F64 = os.path.join(ROOT, "tests", "data",
                                "torch_port_chr21_5kb_diff_f64_golden.tsv")
 GOLDEN_INTER = os.path.join(ROOT, "tests", "data",
                             "torch_port_inter_5kb_golden.tsv")
+GOLDEN_OCT5 = os.path.join(ROOT, "tests", "data",
+                           "torch_port_chr21_5kb_oct5_golden.tsv")
 # the chr21 5 kb workload (bench.py::build_workload) and the 1 kb slice
 # (bench.py::build_workload_1kb): synthetic_hic args and kwargs
 CHR21 = ((9629, 400), dict(seed=2021, n_loops=300, loop_strength=3.0))
@@ -190,13 +211,21 @@ FP32_FLOPS = 67e12    # H100 SXM FP32 peak outside the tensor cores (700 W)
 HBM_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 # (label, N, d_px, resolution, n_bins, starts, ladder octaves); slot 2 is
 # the pad slot
+OCT5 = (1.6, 3.2, 6.4, 12.8, 25.6)     # sigma0 1.6, -oc 5: R=110
 SHAPES = [("5kb", 2000, 400, 5000, 5000, [0, 1000, 0, 3000], (1.6, 3.2)),
           ("1kb", 4000, 2000, 1000, 8000, [0, 2000, 0, 4000], (1.6, 3.2)),
           ("5kb-3oct", 2000, 400, 5000, 5000, [0, 1000, 0, 3000],
            (1.6, 3.2, 6.4)),
           ("5kb-4oct", 2000, 400, 5000, 5000, [0, 1000, 0, 3000],
-           (1.6, 3.2, 6.4, 12.8))]
+           (1.6, 3.2, 6.4, 12.8)),
+          ("5kb-oct5", 2000, 400, 5000, 5000, [0, 1000, 0, 3000], OCT5),
+          ("5kb-s3oct4", 2000, 400, 5000, 5000, [0, 1000, 0, 3000],
+           (3.0, 6.0, 12.0, 24.0)),
+          ("1kb-oct5", 4000, 2000, 1000, 8000, [0, 2000, 0, 4000], OCT5)]
 VALID = [1, 1, 0, 1]
+# shapes whose ladder takes the slab mode, also launched in the streamed
+# mode: the two modes must give the same bits
+BOTH_MODES = ("5kb", "5kb-4oct")
 
 
 def fail(msg: str):
@@ -428,6 +457,21 @@ def hold_to_plain(tag, label, cs, nzf, slices, valid_list, spec, taps,
     return err, locs_err, sums_rel, n_sig, kw
 
 
+@contextlib.contextmanager
+def streamed_mode():
+    """The fused kernel in its streamed mode whatever the ladder, for the
+    check that the two modes give the same bits; never a path of the
+    program."""
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+
+    saved = fl.ladder_mode
+    fl.ladder_mode = lambda R, n_octaves: "stream"
+    try:
+        yield
+    finally:
+        fl.ladder_mode = saved
+
+
 def phase_kernel_vs_plain(dev):
     from mustache_tpu_torch.detect import band_width
     from mustache_tpu_torch.kernels import fused_ladder as fl
@@ -443,10 +487,32 @@ def phase_kernel_vs_plain(dev):
         DB = band_width(N, d_px)
         cs, nzf, slices = synthetic_blocks(dev, N, d_px, res, n_bins, starts,
                                            seed=7)
+        R, n_oct = spec.radius, len(octaves)
+        mode = fl.ladder_mode(R, n_oct)
+        say(f"[3] {label}: octaves {octaves}, R={R}, mode {mode}, "
+            f"{fl.smem_bytes(R, n_oct)} B of shared memory a block")
         err, locs_err, sums_rel, n_sig, kw = hold_to_plain(
             "3", label, cs, nzf, slices, VALID, spec, taps, radii, d_px, DB)
         ms = cuda_ms(lambda: fl.fused_ladder_nms_batched(
             cs, nzf, taps, radii=radii, **kw), reps=10)
+        stream_ms = None
+        if label in BOTH_MODES:
+            want = fl.fused_ladder_nms_batched(cs, nzf, taps, radii=radii,
+                                               **kw)
+            with streamed_mode():
+                got = fl.fused_ladder_nms_batched(cs, nzf, taps,
+                                                  radii=radii, **kw)
+                torch.cuda.synchronize()
+                stream_ms = cuda_ms(lambda: fl.fused_ladder_nms_batched(
+                    cs, nzf, taps, radii=radii, **kw), reps=10)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"{label}: the streamed mode differs from the slab "
+                     f"mode")
+            del got, want
+            say(f"[3] {label}: streamed mode "
+                f"({fl.smem_bytes(R, n_oct, 'stream')} B) bit-identical to "
+                f"the slab mode; {stream_ms:.4f} ms against the slab "
+                f"mode's {ms:.4f} ms")
         plain_ms = cuda_ms(
             lambda: fl.fused_ladder_nms_reference(cs, nzf, taps, **kw), reps=2)
         blur_ms = cuda_ms(lambda: blur_only(cs, taps, spec, VALID), reps=3)
@@ -462,7 +528,8 @@ def phase_kernel_vs_plain(dev):
             f"{bound_ms / ms:.3f}, {flop / ms / 1e9:.2f} TFLOP/s")
         report[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              blur_ms=blur_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, share=bound_ms / ms)
+                             bound_by=bound_by, share=bound_ms / ms,
+                             mode=mode, stream_ms=stream_ms)
         del cs, nzf, slices
         torch.cuda.empty_cache()
     return report
@@ -1051,38 +1118,26 @@ def profile_ranges(fn, names):
     return ranges, kernel_ms, top
 
 
-def phase_diff(dev):
-    from mustache_tpu_torch import DetectionConfig, detect_diff_loops_coo
-    from mustache_tpu_torch.config import chunk_grid
+def stacked_report(tag, det, band1, band2, start, d_px):
+    """The diff path's fused launches on the card: the stacked batch with
+    a pad slot per condition (``DIFF_STARTS``: slots 2 and 5) held to the
+    plain version under phase 3's rule, then the main path's launch of
+    every block of both conditions (2B slots) timed beside its plain
+    version, cuDNN's blur of the same blocks and its FP32 bound, and the
+    difference planes timed."""
     from mustache_tpu_torch.detect import band_width
-    from mustache_tpu_torch.diff import (
-        _diff_bands, build_diff_detector, diff_p_band, diff_planes,
-    )
-    from mustache_tpu_torch.diff_cli import SUFFIXES, main as diff_main
-    from mustache_tpu_torch.pipeline import local_runner
+    from mustache_tpu_torch.diff import diff_p_band, diff_planes
     from mustache_tpu_torch.kernels import fused_ladder as fl
 
-    t_phase = time.perf_counter()
-    (n_bins, _), _ = CHR21
-    x1, y1, v1 = workload(CHR21)
-    x2, y2, v2 = workload(CHR21_COND2)
-    cfg = DetectionConfig(resolution=5000, distance_bp=2_000_000, pt=PT,
-                          st=ST, pt2=PT2)
-    d_px, N = cfg.distance_px, cfg.chunk_size
+    spec, N = det.spec, det.n
     DB = band_width(N, d_px)
-    ((band1,), (band2,)), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg,
-                                             local_runner(dev))
-    det = build_diff_detector(cfg, N, device=dev)
-    spec = det.spec
-    start, _ = chunk_grid(n, N, d_px)
-
-    # the stacked batch with a pad slot per condition (slots 2 and 5)
+    dev = band1.device
     cs, nzf, slices = stacked_blocks(band1, band2, DIFF_STARTS, N, d_px)
     err, locs_err, sums_rel, n_sig, _ = hold_to_plain(
-        "7", "diff stacked", cs, nzf, slices,
+        tag, "diff stacked", cs, nzf, slices,
         [int(s >= 0) for s in DIFF_STARTS] * 2, spec, det.taps, det.radii,
         d_px, DB)
-    say(f"[7] stacked [2B] batch, pads at slots 2 and 5: significant "
+    say(f"[{tag}] stacked [2B] batch, pads at slots 2 and 5: significant "
         f"candidates {n_sig} equal; band_v max abs err {err:.3g}, locs "
         f"{locs_err:.3g}, sums rel {sums_rel:.3g}")
     del cs, nzf, slices
@@ -1099,18 +1154,44 @@ def phase_diff(dev):
         lambda: fl.fused_ladder_nms_reference(cs, nzf, det.taps, **kw), reps=1)
     blur_ms = cuda_ms(lambda: blur_only(cs, det.taps, spec, [1] * (2 * B)),
                       reps=2)
-    flop, nbytes, bound_ms, bound_by = kernel_bound(spec, N, DB, 2 * B)
+    flop, _, bound_ms, bound_by = kernel_bound(spec, N, DB, 2 * B)
     nz = nzf > 0.5
     planes_ms = cuda_ms(lambda: diff_p_band(
         cs[:B], cs[B:], nz[:B], nz[B:], det.taps[diff_planes(spec)],
         R=spec.radius, Dl=DB, valid=[1] * B), reps=3)
-    say(f"[7] stacked launch of the main path ({2 * B} slots): kernel "
+    say(f"[{tag}] stacked launch of the main path ({2 * B} slots): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, cuDNN blur only "
         f"{blur_ms:.3f} ms; {flop / 1e9:.3f} GFLOP -> "
         f"bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}; "
         f"difference planes (4 blurs + p, {B} blocks) {planes_ms:.3f} ms")
     del cs, nzf, slices, nz
     torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, blur_ms=blur_ms,
+                bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+                planes_ms=planes_ms)
+
+
+def phase_diff(dev):
+    from mustache_tpu_torch import DetectionConfig, detect_diff_loops_coo
+    from mustache_tpu_torch.config import chunk_grid
+    from mustache_tpu_torch.diff import _diff_bands, build_diff_detector
+    from mustache_tpu_torch.diff_cli import SUFFIXES, main as diff_main
+    from mustache_tpu_torch.pipeline import local_runner
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+
+    t_phase = time.perf_counter()
+    (n_bins, _), _ = CHR21
+    x1, y1, v1 = workload(CHR21)
+    x2, y2, v2 = workload(CHR21_COND2)
+    cfg = DetectionConfig(resolution=5000, distance_bp=2_000_000, pt=PT,
+                          st=ST, pt2=PT2)
+    d_px, N = cfg.distance_px, cfg.chunk_size
+    ((band1,), (band2,)), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg,
+                                             local_runner(dev))
+    det = build_diff_detector(cfg, N, device=dev)
+    start, _ = chunk_grid(n, N, d_px)
+
+    k = stacked_report("7", det, band1, band2, start, d_px)
 
     # detect_diff_loops_coo with no device: the card, against the golden
     logs = []
@@ -1193,11 +1274,12 @@ def phase_diff(dev):
         f"equal the direct call's rows; {plan}; wall {wall:.3f} s, ingest "
         f"{ingest:.3f} s, detect {detect:.3f} s, kernel launches "
         f"{cli_launches}; phase 7 took {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches_diff=launches, ms_diff_stacked=ms,
-                plain_ms_diff_stacked=plain_ms,
-                bound_ms_diff_stacked=bound_ms, blur_ms_diff_stacked=blur_ms,
-                max_abs_err_diff=err,
-                diff_planes_ms=planes_ms, diff_cold_s=cold,
+    return dict(launches_diff=launches, ms_diff_stacked=k["ms"],
+                plain_ms_diff_stacked=k["plain_ms"],
+                bound_ms_diff_stacked=k["bound_ms"],
+                blur_ms_diff_stacked=k["blur_ms"],
+                max_abs_err_diff=k["max_abs_err"],
+                diff_planes_ms=k["planes_ms"], diff_cold_s=cold,
                 diff_warm_s=sorted(warm)[1], diff_peak_mem_gib=peak / 2**30,
                 diff_profile_ms=ranges, diff_profile_kernel_ms=busy,
                 diff_rows=len(got), cli_diff_wall_s=wall,
@@ -1467,10 +1549,11 @@ def phase_ladder_route(dev, workdir):
     del band, slices, nzb, cs, nz, nzf
     torch.cuda.empty_cache()
 
-    # (f) an oversized ladder (sigma0 1.6, 5 octaves: R=110) on the ladder
-    # route, held to the fused kernel's plain version on the card
-    big = cfg.with_(octaves=5)
-    R5 = build_detector(big, 2000, device=dev).spec.radius
+    # (f) an oversized ladder (sigma0 1.6, 6 octaves: R=220, beyond the
+    # JAX package's fused gate) on the ladder route, held to the fused
+    # kernel's plain version on the card
+    big = cfg.with_(octaves=6)
+    R6 = build_detector(big, 2000, device=dev).spec.radius
     blogs = []
     fl.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1478,18 +1561,18 @@ def phase_ladder_route(dev, workdir):
     torch.cuda.synchronize()
     t_big = time.perf_counter() - t0
     if fl.LAUNCHES or "route=ladder" not in blogs[0]:
-        fail(f"5 octaves: launches {fl.LAUNCHES}, plan {blogs[0]}")
+        fail(f"6 octaves: launches {fl.LAUNCHES}, plan {blogs[0]}")
     with plain_kernel_route():
         plain_loops = detect_loops_coo(x, y, v, big)
     n_b, err_b = compare_to_golden(
         loops_tsv_rows(bloops, "chr21", 5000),
         loops_tsv_rows(plain_loops, "chr21", 5000), tag="8")
-    say(f"[8] sigma0 1.6, 5 octaves (R={R5}, "
-        f"{fl.smem_bytes(R5, 5)} B > {fl.SMEM_LIMIT} B): {blogs[0]}; "
+    say(f"[8] sigma0 1.6, 6 octaves (R={R6} > {fl.MAX_RADIUS}, beyond "
+        f"the kernel's gate): {blogs[0]}; "
         f"{len(bloops)} rows, {n_b} equal to the plain version's "
         f"({len(plain_loops)}; q max rel err {err_b:.3g}); wall "
         f"{t_big:.3f} s; phase 8 took {time.perf_counter() - t_phase:.1f} s")
-    rep.update(oct5_rows=len(bloops), oct5_wall_s=t_big)
+    rep.update(oct6_rows=len(bloops), oct6_wall_s=t_big)
     return rep
 
 
@@ -2102,6 +2185,72 @@ def chr21_dense_blocks(dev):
     return dense_from_band(slices).cpu().numpy()
 
 
+def joined_windows(cs, nzf, det, kw, n, n_row):
+    """The band state of ``n``-row blocks from ``n_row`` row-window
+    launches, one per part of ``fused_ladder.row_cuts``, joined in
+    order."""
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+
+    cuts = fl.row_cuts(n, n_row)
+    parts = []
+    for lo, hi in zip(cuts, cuts[1:]):
+        w0, w1 = fl.window_rows(n, lo, hi, det.spec.radius)
+        parts.append(fl.fused_ladder_window(
+            cs[:, w0:w1].contiguous(), nzf[:, w0:w1].contiguous(), det.taps,
+            radii=det.radii, N=n, base=w0, t_lo=lo, t_hi=hi, **kw))
+    return [torch.cat([p[i] for p in parts], 1) for i in range(3)]
+
+
+def window_report(tag, cs, nzf, det, kw, n):
+    """One row window, part 2 of 4 of the blocks ``cs``/``nzf`` ``[B, n,
+    n]``, on the card: exact against its plain version (band_sig and
+    band_v equal, locs equal, sums within RTOL), timed against the
+    whole-block launch and the plain version, with its FP32 bound."""
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+
+    spec, DB = det.spec, kw["DB"]
+    cuts = fl.row_cuts(n, 4)
+    lo, hi = cuts[1], cuts[2]
+    w0, w1 = fl.window_rows(n, lo, hi, spec.radius)
+    win = dict(N=n, base=w0, t_lo=lo, t_hi=hi)
+    wcs, wnz = cs[:, w0:w1].contiguous(), nzf[:, w0:w1].contiguous()
+    got = fl.fused_ladder_window(wcs, wnz, det.taps, radii=det.radii,
+                                 **kw, **win)
+    plain = fl.fused_ladder_nms_reference(wcs, wnz, det.taps, **kw, **win)
+    torch.cuda.synchronize()
+    locs, sums = fl.reduce_parts(
+        got[2], kw["n_octaves"] * kw["planes_per_octave"])
+    err = float((got[0] - plain[0]).abs().max())
+    sig_diff = int((got[1] != plain[1]).sum())
+    locs_err = float((locs - plain[2]).abs().max())
+    sums_rel = float(((sums - plain[3]).abs()
+                      / plain[3].abs().clamp(min=1e-30)).max())
+    if sig_diff or err > 0 or locs_err > 0 or sums_rel > RTOL:
+        fail(f"row window [{lo}, {hi}) against its plain version: band_sig "
+             f"differs at {sig_diff} cells, band_v max abs err {err}, locs "
+             f"{locs_err}, sums rel {sums_rel}")
+    del got, plain
+    ms_win = cuda_ms(lambda: fl.fused_ladder_window(
+        wcs, wnz, det.taps, radii=det.radii, **kw, **win), reps=10)
+    ms_full = cuda_ms(lambda: fl.fused_ladder_window(
+        cs, nzf, det.taps, radii=det.radii, **kw), reps=10)
+    plain_ms = cuda_ms(lambda: fl.fused_ladder_nms_reference(
+        wcs, wnz, det.taps, **kw, **win), reps=2)
+    rows = range(lo * fl.TILE_ROWS, min(hi * fl.TILE_ROWS, n))
+    flop, _, bound_ms, bound_by = kernel_bound(spec, n, DB, cs.shape[0],
+                                               rows=rows)
+    say(f"[{tag}] row window [{lo * fl.TILE_ROWS}, {rows[-1] + 1}) of "
+        f"{cs.shape[0]} {n}^2 blocks (held rows [{w0}, {w1}), part 2 of 4, "
+        f"R={spec.radius}): band_sig equal, band_v max abs err {err:.3g}, "
+        f"locs {locs_err:.3g}, sums rel {sums_rel:.3g} against its plain "
+        f"version; kernel {ms_win:.4f} ms against the whole-block launch's "
+        f"{ms_full:.4f} ms; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}, {flop / 1e9:.3f} GFLOP)")
+    return dict(max_abs_err_row_window=err, ms_row_window=ms_win,
+                ms_full_block_b6=ms_full, plain_ms_row_window=plain_ms,
+                bound_ms_row_window=bound_ms, bound_by_row_window=bound_by)
+
+
 def phase_row_axis(dev):
     """Phase 10 (e): the mesh's row axis. The dense runner on meshes of
     ``cuda:0`` entries (``ROW_MESHES``) against ``n_row = 1`` (the
@@ -2169,59 +2318,14 @@ def phase_row_axis(dev):
               planes_per_octave=spec.planes_per_octave, DB=DB)
     full = fl.fused_ladder_window(cs, nzf, det.taps, radii=det.radii, **kw)
     for n_row in (2, 3, 4):
-        cuts = fl.row_cuts(n, n_row)
-        parts = []
-        for lo, hi in zip(cuts, cuts[1:]):
-            w0, w1 = fl.window_rows(n, lo, hi, spec.radius)
-            parts.append(fl.fused_ladder_window(
-                cs[:, w0:w1].contiguous(), nzf[:, w0:w1].contiguous(),
-                det.taps, radii=det.radii, N=n, base=w0, t_lo=lo, t_hi=hi,
-                **kw))
-        joined = [torch.cat([p[i] for p in parts], 1) for i in range(3)]
-        if not all(torch.equal(a, b) for a, b in zip(joined, full)):
+        if not all(torch.equal(a, b) for a, b in zip(
+                joined_windows(cs, nzf, det, kw, n, n_row), full)):
             fail(f"row windows of {n_row} parts do not join to the "
                  f"whole-block launch")
-    cuts = fl.row_cuts(n, 4)
-    lo, hi = cuts[1], cuts[2]
-    w0, w1 = fl.window_rows(n, lo, hi, spec.radius)
-    win = dict(N=n, base=w0, t_lo=lo, t_hi=hi)
-    wcs, wnz = cs[:, w0:w1].contiguous(), nzf[:, w0:w1].contiguous()
-    got = fl.fused_ladder_window(wcs, wnz, det.taps, radii=det.radii,
-                                 **kw, **win)
-    plain = fl.fused_ladder_nms_reference(wcs, wnz, det.taps, **kw, **win)
-    torch.cuda.synchronize()
-    locs, sums = fl.reduce_parts(
-        got[2], kw["n_octaves"] * kw["planes_per_octave"])
-    err = float((got[0] - plain[0]).abs().max())
-    sig_diff = int((got[1] != plain[1]).sum())
-    locs_err = float((locs - plain[2]).abs().max())
-    sums_rel = float(((sums - plain[3]).abs()
-                      / plain[3].abs().clamp(min=1e-30)).max())
-    if sig_diff or err > 0 or locs_err > 0 or sums_rel > RTOL:
-        fail(f"row window [{lo}, {hi}) against its plain version: band_sig "
-             f"differs at {sig_diff} cells, band_v max abs err {err}, locs "
-             f"{locs_err}, sums rel {sums_rel}")
-    ms_win = cuda_ms(lambda: fl.fused_ladder_window(
-        wcs, wnz, det.taps, radii=det.radii, **kw, **win), reps=10)
-    ms_full = cuda_ms(lambda: fl.fused_ladder_window(
-        cs, nzf, det.taps, radii=det.radii, **kw), reps=10)
-    plain_ms = cuda_ms(lambda: fl.fused_ladder_nms_reference(
-        wcs, wnz, det.taps, **kw, **win), reps=2)
-    rows = range(lo * fl.TILE_ROWS, min(hi * fl.TILE_ROWS, n))
-    flop, nbytes, bound_ms, bound_by = kernel_bound(spec, n, DB, len(blocks),
-                                                    rows=rows)
-    say(f"[10] row window [{lo * fl.TILE_ROWS}, {rows[-1] + 1}) of chr21's "
-        f"six 2000^2 blocks (held rows [{w0}, {w1}), part 2 of 4): band_sig "
-        f"equal, band_v max abs err {err:.3g}, locs {locs_err:.3g}, sums rel "
-        f"{sums_rel:.3g} against its plain version; joined windows of 2, 3 "
-        f"and 4 parts == the whole-block launch (bit-identical); kernel "
-        f"{ms_win:.4f} ms against the whole-block launch's {ms_full:.4f} ms; "
-        f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
-        f"{flop / 1e9:.3f} GFLOP)")
-    rep.update(max_abs_err_row_window=err, ms_row_window=ms_win,
-               ms_full_block_b6=ms_full, plain_ms_row_window=plain_ms,
-               bound_ms_row_window=bound_ms, bound_by_row_window=bound_by)
-    del cs, nzf, full, parts, joined, wcs, wnz, got, plain
+    say(f"[10] joined row windows of 2, 3 and 4 parts == the whole-block "
+        f"launch of chr21's six 2000^2 blocks (bit-identical)")
+    rep.update(window_report("10", cs, nzf, det, kw, n))
+    del cs, nzf, full
     torch.cuda.empty_cache()
 
     # float64: the ladder route on 2 x 2 within rtol 1e-9 of n_row = 1
@@ -2358,6 +2462,211 @@ def phase_cool(dev, workdir, files):
 
 
 # ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+def counted(fn):
+    """``fn`` wrapped to record the fused launches of each call (the count
+    set to 0 just before it, read just after), and the list of counts."""
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+
+    counts = []
+
+    def run():
+        fl.LAUNCHES = 0
+        out = fn()
+        counts.append(fl.LAUNCHES)
+        return out
+    return run, counts
+
+
+def phase_oct5(dev, workdir):
+    """Phase 12: sigma0 1.6 at ``-oc 5`` (R=110, the kernel's streamed
+    mode) through every caller of the fused kernel, each against the
+    ladder route (``use_pallas="off"``) on the same call: chr21 5 kb
+    through ``detect_loops_coo`` and the CLI from phase 5's ``.hic`` (one
+    launch each, route ``kernel``, rows held to the JAX golden under phase
+    4's rule), the 1 kb slice (rows held to the ladder route's, peak
+    memory of both), the differential workload (one stacked launch, rows
+    held to the ladder route's under phase 7's rule; the stacked launch
+    held and timed, :func:`stacked_report`) and the row window (four
+    parts joined equal to the whole-block launch, one held and timed,
+    :func:`window_report`; the dense runner on 1 x 4 entries of
+    ``cuda:0`` equal to ``n_row = 1``)."""
+    from mustache_tpu_torch import (
+        DetectionConfig, detect_diff_loops_coo, detect_loops_coo,
+    )
+    from mustache_tpu_torch.config import chunk_grid
+    from mustache_tpu_torch.detect import (
+        _preamble, band_width, build_detector,
+    )
+    from mustache_tpu_torch.diff import _diff_bands, build_diff_detector
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from mustache_tpu_torch.pipeline import local_runner
+    from mustache_tpu_torch.sharding import make_mesh, make_runner
+
+    rep = {}
+    t_phase = time.perf_counter()
+    x, y, v = workload(CHR21)
+    cfg = DetectionConfig(resolution=5000, distance_bp=2_000_000, pt=PT,
+                          st=ST, octaves=5)
+    spec = build_detector(cfg, 2000, device=dev).spec
+    R = spec.radius
+    say(f"[12] sigma0 1.6, 5 octaves: R={R}, kernel mode "
+        f"{fl.ladder_mode(R, 5)}, {fl.smem_bytes(R, 5)} B a block")
+    _, golden = read_tsv(GOLDEN_OCT5)
+
+    # (a) detect_loops_coo: the kernel route against the golden, and the
+    # ladder route on the same call
+    walls = {}
+    for route, c in (("kernel", cfg),
+                     ("ladder", cfg.with_(use_pallas="off"))):
+        logs = []
+        run, counts = counted(lambda: detect_loops_coo(x, y, v, c,
+                                                       log=logs.append))
+        loops, cold, warm, peak = timed_runs(run)
+        want = 1 if route == "kernel" else 0
+        if (f"route={route}" not in logs[0] or "device=cuda" not in logs[0]
+                or any(n != want for n in counts)):
+            fail(f"-oc 5 {route} route: launches {counts}, plan {logs[0]}")
+        n_c, worst = compare_to_golden(loops_tsv_rows(loops, "chr21", 5000),
+                                       golden, tag="12")
+        walls[route] = (cold, sorted(warm)[1])
+        say(f"[12] chr21 5 kb -oc 5, {route} route: {logs[0]}; {len(loops)} "
+            f"rows, {n_c} equal to the JAX golden ({len(golden)}; q max rel "
+            f"err {worst:.3g}); fused launches per call {counts}; wall cold "
+            f"{cold:.3f} s, warm {' '.join(f'{w:.3f}' for w in warm)} s; "
+            f"peak device memory {peak / 2**30:.2f} GiB")
+        rep[f"oct5_{route}_cold_s"], rep[f"oct5_{route}_warm_s"] = walls[route]
+        rep[f"oct5_{route}_q_err"] = worst
+    rep["launches_oct5"] = 1
+
+    # (b) the CLI from phase 5's .hic at -oc 5
+    out = os.path.join(workdir, "oct5.tsv")
+    fl.LAUNCHES = 0
+    rc, events, wall = run_cli(
+        ["-f", os.path.join(workdir, "chr21.hic"), "-ch", "chr21", "-r",
+         "5kb", "-o", out, "-pt", str(PT), "-st", str(ST), "-oc", "5"])
+    cli_launches = fl.LAUNCHES
+    plan = event(events, "detect_plan")["detail"] if rc == 0 else ""
+    if rc != 0 or cli_launches != 1 or "route=kernel" not in plan:
+        fail(f"CLI -oc 5 exited {rc}, launches {cli_launches}, plan {plan}")
+    n_c, worst = compare_to_golden(read_tsv(out)[1], golden, tag="12")
+    say(f"[12] CLI -oc 5 from .hic: {plan}; {n_c} rows equal to the golden "
+        f"(q max rel err {worst:.3g}); fused launches {cli_launches}; wall "
+        f"{wall:.3f} s, detect {event(events, 'detect')['seconds']:.3f} s")
+    rep["launches_cli_oct5"] = cli_launches
+
+    # (c) the 1 kb slice at -oc 5: the kernel route's rows against the
+    # ladder route's
+    (_, d_px), _ = SLICE_1KB
+    x1, y1, v1 = workload(SLICE_1KB)
+    cfg1 = DetectionConfig(resolution=1000, distance_bp=d_px * 1000, pt=PT,
+                           st=ST, octaves=5)
+    got = {}
+    for route, c in (("kernel", cfg1),
+                     ("ladder", cfg1.with_(use_pallas="off"))):
+        logs = []
+        run, counts = counted(lambda: detect_loops_coo(x1, y1, v1, c,
+                                                       log=logs.append))
+        loops, cold, warm, peak = timed_runs(run, n_warm=1)
+        if (f"route={route}" not in logs[0]
+                or (route == "kernel") != (min(counts) > 0)):
+            fail(f"1 kb -oc 5 {route} route: launches {counts}, plan "
+                 f"{logs[0]}")
+        got[route] = loops_tsv_rows(loops, "chr1", 1000)
+        say(f"[12] 1 kb -oc 5, {route} route: {logs[0]}; {len(loops)} rows; "
+            f"fused launches per call {counts}; wall cold {cold:.3f} s, warm "
+            f"{warm[0]:.3f} s; peak device memory {peak / 2**30:.2f} GiB")
+        rep[f"oct5_1kb_{route}_warm_s"] = warm[0]
+        rep[f"oct5_1kb_{route}_peak_gib"] = peak / 2**30
+        rep[f"launches_1kb_oct5_{route}"] = counts[0]
+    if not got["kernel"]:
+        fail("no loops at 1 kb -oc 5")
+    n_c, worst = compare_to_golden(got["kernel"], got["ladder"], tag="12")
+    say(f"[12] 1 kb -oc 5: {n_c} kernel-route rows equal to the ladder "
+        f"route's (q max rel err {worst:.3g})")
+    del x1, y1, v1
+    torch.cuda.empty_cache()
+
+    # (d) differential calling at -oc 5: one stacked launch, rows held to
+    # the ladder route's under phase 7's rule
+    x2, y2, v2 = workload(CHR21_COND2)
+    dcfg = cfg.with_(pt2=PT2)
+    drows = {}
+    for route, c in (("kernel", dcfg), ("ladder", dcfg.with_(
+            use_pallas="off"))):
+        logs = []
+        run, counts = counted(lambda: detect_diff_loops_coo(
+            x, y, v, x2, y2, v2, c, log=logs.append))
+        rows, cold, warm, peak = timed_runs(run, n_warm=1)
+        want = 1 if route == "kernel" else 0
+        if f"route={route}" not in logs[0] or any(n != want for n in counts):
+            fail(f"diff -oc 5 {route} route: launches {counts}, plan "
+                 f"{logs[0]}")
+        drows[route] = diff_tsv_rows(rows, "chr21", 5000)
+        say(f"[12] diff -oc 5, {route} route: {len(rows)} rows; fused "
+            f"launches per call {counts}; wall cold {cold:.3f} s, warm "
+            f"{warm[0]:.3f} s; peak device memory {peak / 2**30:.2f} GiB")
+        rep[f"oct5_diff_{route}_warm_s"] = warm[0]
+    rep["launches_diff_oct5"] = 1
+    ((band1,), (band2,)), _, n = _diff_bands(x, y, v, x2, y2, v2, dcfg,
+                                             local_runner(dev))
+    start, _ = chunk_grid(n, dcfg.chunk_size, dcfg.distance_px)
+    ddet = build_diff_detector(dcfg, dcfg.chunk_size, device=dev)
+    tie = make_diff_tie(ddet, band1, band2, start, dcfg.resolution)
+    n_c, worst = compare_diff_to_golden(drows["kernel"], drows["ladder"], tie)
+    say(f"[12] diff -oc 5: {n_c} kernel-route rows equal to the ladder "
+        f"route's per tag (q max rel err {worst:.3g})")
+    k = stacked_report("12", ddet, band1, band2, start, dcfg.distance_px)
+    rep.update({f"{key}_diff_oct5": val for key, val in k.items()})
+    del band1, band2
+
+    # (e) the row window: four parts joined against the whole-block
+    # launch, and the dense runner on 1 x 4 entries of cuda:0
+    blocks = chr21_dense_blocks(dev)
+    det = build_detector(cfg, 2000, device=dev)
+    cs, nz = _preamble(torch.from_numpy(blocks).to(dev), 400)
+    nzf = nz.to(torch.float32)
+    del nz
+    kw = dict(R=R, n_octaves=5, planes_per_octave=spec.planes_per_octave,
+              DB=band_width(2000, 400))
+    full = fl.fused_ladder_window(cs, nzf, det.taps, radii=det.radii, **kw)
+    fl.LAUNCHES = 0
+    joined = joined_windows(cs, nzf, det, kw, 2000, 4)
+    window_launches = fl.LAUNCHES
+    if not all(torch.equal(a, b) for a, b in zip(joined, full)):
+        fail("-oc 5: row windows of 4 parts do not join to the whole-block "
+             "launch")
+    say(f"[12] row windows -oc 5: 4 parts ({window_launches} launches) "
+        f"joined == the whole-block launch of chr21's six 2000^2 blocks "
+        f"(bit-identical)")
+    win = window_report("12", cs, nzf, det, kw, 2000)
+    rep.update({f"{k}_oct5": val for k, val in win.items()})
+    del cs, nzf, full, joined
+    torch.cuda.empty_cache()
+    base = {k: a.cpu().numpy() for k, a in det.fn(
+        torch.from_numpy(blocks).to(dev)).items()}
+    runner = make_runner(make_mesh(1, 4, devices=["cuda:0"] * 4))
+    dets = runner.per_device(lambda d: build_detector(cfg, 2000, device=d))
+    fl.LAUNCHES = 0
+    out = runner(dets, blocks)
+    torch.cuda.synchronize()
+    for k, want in base.items():
+        if not np.array_equal(out[k], want,
+                              equal_nan=want.dtype.kind == "f"):
+            fail(f"-oc 5 row axis 1x4: {k} differs from n_row = 1")
+    if min(runner.launches) <= 0 or sum(runner.launches) != fl.LAUNCHES:
+        fail(f"-oc 5 row axis 1x4: launches {runner.launches}, counted "
+             f"{fl.LAUNCHES}")
+    say(f"[12] the dense runner on 1x4 cuda:0 at -oc 5 equals n_row = 1, "
+        f"fused launches per entry {runner.launches}; phase 12 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    rep["launches_row_window_oct5"] = list(runner.launches)
+    return rep
+
+
+# ---------------------------------------------------------------------------
 # phase 11
 # ---------------------------------------------------------------------------
 
@@ -2469,10 +2778,11 @@ def main():
         inter = phase_inter(dev, workdir)
         sharding = phase_sharding(dev, workdir, loops4, warm4, rows7)
         cool = phase_cool(dev, workdir, files)
+        oct5 = phase_oct5(dev, workdir)
     say(json.dumps({"phase5_5kb": files, "phase6_1kb": slice_1kb,
                     "phase7_diff": diff, "phase8_ladder": ladder,
                     "phase9_inter": inter, "phase10_sharding": sharding,
-                    "phase11_cool": cool}))
+                    "phase11_cool": cool, "phase12_oct5": oct5}))
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
@@ -2486,7 +2796,9 @@ def main():
         "launches": launches,
         "max_abs_err": max([r["max_abs_err"] for r in report.values()]
                            + [diff["max_abs_err_diff"],
-                              sharding["max_abs_err_row_window"]]),
+                              sharding["max_abs_err_row_window"],
+                              oct5["max_abs_err_diff_oct5"],
+                              oct5["max_abs_err_row_window_oct5"]]),
         "ms": r5["ms"],
         "plain_ms": r5["plain_ms"],
         "bound_ms": r5["bound_ms"],
@@ -2525,6 +2837,28 @@ def main():
         "bound_ms_row_window": sharding["bound_ms_row_window"],
         "bound_by_row_window": sharding["bound_by_row_window"],
         "launches_cli_mcool": cool["cli_mcool_launches"],
+        **{f"{key}_{tag}": report[label][key]
+           for label, tag in (("5kb-oct5", "oct5"),
+                              ("5kb-s3oct4", "s3oct4"),
+                              ("1kb-oct5", "1kb_oct5"))
+           for key in ("ms", "plain_ms", "bound_ms", "share")},
+        "cudnn_blur_only_ms_oct5": report["5kb-oct5"]["blur_ms"],
+        "cudnn_blur_only_ms_s3oct4": report["5kb-s3oct4"]["blur_ms"],
+        "cudnn_blur_only_ms_1kb_oct5": report["1kb-oct5"]["blur_ms"],
+        "ms_stream_mode_5kb": report["5kb"]["stream_ms"],
+        "ms_stream_mode_4oct": r4["stream_ms"],
+        "launches_oct5": oct5["launches_oct5"],
+        "launches_cli_oct5": oct5["launches_cli_oct5"],
+        "launches_1kb_oct5": oct5["launches_1kb_oct5_kernel"],
+        "launches_diff_oct5": oct5["launches_diff_oct5"],
+        **{f"{key}_diff_oct5": oct5[f"{key}_diff_oct5"]
+           for key in ("ms", "plain_ms", "bound_ms", "share")},
+        "cudnn_blur_only_ms_diff_oct5": oct5["blur_ms_diff_oct5"],
+        "launches_row_window_oct5": oct5["launches_row_window_oct5"],
+        **{f"{key}_row_window_oct5": oct5[f"{key}_row_window_oct5"]
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "ms_full_block_b6_oct5": oct5["ms_full_block_b6_oct5"],
+        "launches_oct6": 0,
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,6 +63,30 @@
 //     (the empty state (0, -1) where it computes none), staged through
 //     shared memory so that a warp writes consecutive cells; the tiles
 //     cover the band exactly, so the outputs need no pre-fill.
+//
+// Two modes of one kernel (a template argument, chosen by the wrapper from
+// the ladder's radius R and octave count alone):
+//   * slab (STREAM = false): the whole reflected slab and every sigma's
+//     taps sit in shared memory, loaded once per tile. It holds ladders up
+//     to the block's 232,448 B (the default ladder: R = 14);
+//   * streamed slab (STREAM = true), for the larger ladders of the JAX
+//     kernel's domain (R <= 127: the slab alone is 366 KB at R = 127).
+//     Shared memory holds the current octave's 12 sigmas' taps and, per
+//     sigma, one piece of the slab at a time: the rows that sigma reads
+//     (32 + 2r), PW = 64 of its tmp columns. The vertical pass is per
+//     column, so a piece's columns of tmp are finished from that piece
+//     alone (no partial sums across pieces), in the same FMA order as the
+//     slab mode: both modes give the same bits. A piece is fetched with
+//     cp.async straight into shared memory (no registers, all of a
+//     thread's copies in flight at once), and a sigma's first piece is
+//     fetched while the previous sigma's horizontal pass and NMS run. The
+//     slab is read once per sigma instead of once per tile (through L2:
+//     the slabs of neighbouring tiles overlap). At R = 127 a block takes
+//     172,192 B: one block per SM. What limits both modes at large radii
+//     is the tile's halo: the vertical pass computes 66 + 2r columns for
+//     64 tile columns (and the horizontal one 32 x 80 outputs for 30 x
+//     64 cells), so a sigma of radius 110 costs a tile 3.0 times the FMAs
+//     that its cells need (1.45 times at the default ladder's r = 14).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -82,9 +106,12 @@ constexpr int HW = CELLS + 2;         // horizontal pass: outputs per thread
 constexpr int SEG = 32;               // taps per unrolled segment
 constexpr int BLURS = 12;             // blurs per octave
 constexpr int PLANES = BLURS - 3;     // detection planes per octave
+constexpr int PW = 64;                // streamed mode: tmp columns a piece
 static_assert(GR == 32, "one blur row per lane");
 static_assert(GR / V == 4, "vertical pass: four strips of rows");
 static_assert(SEG % 4 == 0, "segments start on 16-byte tap boundaries");
+static_assert(THREADS % PW == 0, "a thread copies one column of a piece");
+static_assert((GR / V) * PW == THREADS, "one vertical unit per thread");
 
 // numpy 'symmetric' reflection of an index into [0, n); the clamp only
 // affects slab cells that feed out-of-matrix blurs, which are zeroed
@@ -92,6 +119,53 @@ __device__ __forceinline__ int reflect(int i, int n) {
   if (i < 0) i = -1 - i;
   if (i >= n) i = 2 * n - 1 - i;
   return min(max(i, 0), n - 1);
+}
+
+// The taps of sigmas [sig0, sig0 + nsig) into s_taps ([nsig][TW]): each
+// sigma's nonzero taps (2r + 1 of the ladder's 2R + 1) first, zero-padded
+// to TW
+__device__ __forceinline__ void stage_taps(float* s_taps,
+                                           const float* __restrict__ taps,
+                                           const int* s_radii, int sig0,
+                                           int nsig, int TW, int T, int R) {
+#pragma unroll 4
+  for (int k = threadIdx.x; k < nsig * TW; k += THREADS) {
+    const int sig = k / TW, t = k - (k / TW) * TW;
+    const int r = s_radii[sig0 + sig];
+    s_taps[k] =
+        t <= 2 * r ? __ldg(taps + (sig0 + sig) * T + R - r + t) : 0.f;
+  }
+}
+
+// cp.async of one float from global to shared memory, and the wait for
+// all of this thread's copies
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Streamed mode: start copying a slab piece, rows [0, rows) and columns
+// [0, cols) (cols <= PW), pitch PW, holding dense (gr0 + pr, gc0 + pc) at
+// the window row reflect(...) - base (clamped as the slab load is); a
+// thread copies one column, so its column index is computed once
+__device__ __forceinline__ void stage_piece(float* dst,
+                                            const float* __restrict__ blk,
+                                            int rows, int cols, int gr0,
+                                            int gc0, int N, int base,
+                                            int held) {
+  const int pc = threadIdx.x % PW;
+  if (pc >= cols) return;
+  const float* src = blk + reflect(gc0 + pc, N);
+  for (int pr = threadIdx.x / PW; pr < rows; pr += THREADS / PW) {
+    const int gi = min(max(reflect(gr0 + pr, N) - base, 0), held - 1);
+    cp_async4(dst + pr * PW + pc, src + (size_t)gi * N);
+  }
 }
 
 // The L taps at w (16-byte aligned, zero-padded to a multiple of 4) into
@@ -214,6 +288,7 @@ __device__ __forceinline__ void store_band(float* __restrict__ band_v,
   }
 }
 
+template <bool STREAM>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_ladder_nms_kernel(const float* __restrict__ cs,
                         const float* __restrict__ nzf,
@@ -236,10 +311,13 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
   // TP = 4 (mod 32) so that eight lanes' 16-byte loads hit distinct banks
   const int TP = 32 * ((SW + 31) / 32) + 4;
   const int TW = 4 * ((T + 3) / 4);          // taps per sigma, padded
-  float* s_taps = smem;                      // [S][TW] nonzero taps first
-  float* s_tmp = s_taps + S * TW;            // [2][GR][TP] vertical pass
-  float* s_slab = s_tmp + 2 * GR * TP;       // [SR][SW]
-  int* s_radii = (int*)(s_slab + SR * SW);   // [S]
+  // slab mode: every sigma's taps and the whole slab; streamed: one
+  // octave's taps and one piece of PW columns
+  const int ST = STREAM ? BLURS : S;
+  float* s_taps = smem;                      // [ST][TW] nonzero taps first
+  float* s_tmp = s_taps + ST * TW;           // [2][GR][TP] vertical pass
+  float* s_slab = s_tmp + 2 * GR * TP;       // [SR][SW] or [SR][PW]
+  int* s_radii = (int*)(s_slab + SR * (STREAM ? PW : SW));   // [S]
   float* s_part = (float*)(s_radii + S);     // [2][P][NWARP]
 
   const int b = blockIdx.y;
@@ -291,7 +369,8 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
   }
 
   // in flight together: this thread's sigma radius (S <= THREADS), then
-  // the slab, eight loads per thread at a time; slab cell (sr, sc) holds
+  // (slab mode) the slab, eight loads per thread at a time; slab cell
+  // (sr, sc) holds
   // dense (r0 - 1 - R + sr, c0 - 1 - R + sc), at row reflect(...) - base
   // of the window. Every cell that feeds a blur inside the matrix lies in
   // the window; the clamp keeps the other cells' reads in bounds (their
@@ -299,7 +378,7 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
   const int rk = tid < S ? __ldg(radii + tid) : 0;
   const float* blk = cs + (size_t)b * held * N;
   constexpr int BATCH = 8;
-  for (int k0 = tid; k0 < SR * SW; k0 += BATCH * THREADS) {
+  for (int k0 = tid; !STREAM && k0 < SR * SW; k0 += BATCH * THREADS) {
     float v[BATCH];
 #pragma unroll
     for (int e = 0; e < BATCH; ++e) {
@@ -316,12 +395,11 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
   }
   if (tid < S) s_radii[tid] = rk;
   __syncthreads();
-  // each sigma's nonzero taps first, zero-padded to TW
-#pragma unroll 4
-  for (int k = tid; k < S * TW; k += THREADS) {
-    const int sig = k / TW, t = k - (k / TW) * TW;
-    const int r = s_radii[sig];
-    s_taps[k] = t <= 2 * r ? __ldg(taps + sig * T + R - r + t) : 0.f;
+  stage_taps(s_taps, taps, s_radii, 0, ST, TW, T, R);
+  if (STREAM) {                              // sigma 0's first piece
+    const int rn = s_radii[0];
+    stage_piece(s_slab, blk, GR + 2 * rn, min(PW, GC + 2 * rn), r0 - 1 - rn,
+                c0 - 1 - rn, N, base, held);
   }
 
   // per cell: best response and plane; the current plane Lc and its 3x3
@@ -346,13 +424,41 @@ fused_ladder_nms_kernel(const float* __restrict__ cs,
       const int r = s_radii[sig];
       const int lo = R - r;
       const int nt = 2 * r + 1;
-      const float* w = s_taps + sig * TW;
+      const float* w = s_taps + (STREAM ? k : sig) * TW;
       float* tmp = s_tmp + (sig & 1) * GR * TP;
       // tmp column c holds slab column lo + c, c < GC + 2r
-      for (int t0 = 0; t0 < nt; t0 += SEG)
-        vpass_n(min(SEG, nt - t0), w + t0, s_slab, tmp, SW, TP, lo, t0,
-                GC + 2 * r, t0 == 0);
+      if (!STREAM) {
+        for (int t0 = 0; t0 < nt; t0 += SEG)
+          vpass_n(min(SEG, nt - t0), w + t0, s_slab, tmp, SW, TP, lo, t0,
+                  GC + 2 * r, t0 == 0);
+      } else {
+        if (k == 0 && o > 0) {               // this octave's taps, once
+          __syncthreads();                   // the last octave's are read
+          stage_taps(s_taps, taps, s_radii, sig, BLURS, TW, T, R);
+        }
+        // piece p0: tmp columns [p0, p0 + PW), from slab rows lo + [0,
+        // GR + 2r) and columns lo + p0 + [0, PW); its first piece is in
+        // flight since the previous sigma
+        for (int p0 = 0; p0 < GC + 2 * r; p0 += PW) {
+          const int pw = min(PW, GC + 2 * r - p0);
+          if (p0 > 0) {
+            __syncthreads();                 // the last piece is read
+            stage_piece(s_slab, blk, GR + 2 * r, pw, r0 - 1 - r,
+                        c0 - 1 - r + p0, N, base, held);
+          }
+          cp_async_wait_all();
+          __syncthreads();
+          for (int t0 = 0; t0 < nt; t0 += SEG)
+            vpass_n(min(SEG, nt - t0), w + t0, s_slab, tmp + p0, PW, TP, 0,
+                    t0, pw, t0 == 0);
+        }
+      }
       __syncthreads();
+      if (STREAM && sig + 1 < S) {           // the next sigma's first piece
+        const int rn = s_radii[sig + 1];
+        stage_piece(s_slab, blk, GR + 2 * rn, min(PW, GC + 2 * rn),
+                    r0 - 1 - rn, c0 - 1 - rn, N, base, held);
+      }
 
       // blur at row g, blur columns CELLS * warp + o, o < HW (dense
       // column c0 - 1 + CELLS * warp + o); zero outside the matrix
@@ -483,44 +589,48 @@ extern "C" {
 // Launch on `stream`: the row tiles [t_lo, t_hi) of each block, from its
 // dense rows [base, base + held) (cs and nzf are [B, held, N]); band_v and
 // band_sig are [B, min(TR t_hi, N) - TR t_lo, DB], parts [B, (t_hi - t_lo)
-// tiles_per_row, 2P]. Geometry (tiles_per_row, smem_bytes, the window) and
+// tiles_per_row, 2P]; `streamed` 0 runs the slab mode, 1 the streamed
+// slab. Geometry (tiles_per_row, the mode, smem_bytes, the window) and
 // the per-sigma radii come from the Python wrapper
 // (mustache_tpu_torch/kernels/fused_ladder.py), the single source of those
-// formulas. The kernel's shared-memory attributes are set once per device,
+// formulas. Each mode's shared-memory attributes are set once per device,
 // and again only when a launch needs more than was set. Returns
 // cudaGetLastError() after the launch.
 int mtt_fused_ladder_nms(const float* cs, const float* nzf, const int* valid,
                          const float* taps, const int* radii, float* band_v,
                          int* band_sig, float* parts, int B, int N, int DB,
                          int R, int n_octaves, int tiles_per_row, int base,
-                         int held, int t_lo, int t_hi, size_t smem_bytes,
-                         void* stream) {
+                         int held, int t_lo, int t_hi, int streamed,
+                         size_t smem_bytes, void* stream) {
   constexpr int MAX_DEVICES = 64;
-  static size_t smem_set[MAX_DEVICES] = {};
+  static size_t smem_set[2][MAX_DEVICES] = {};
   if (B <= 0 || N <= 0 || DB <= 0 || R < 0 || n_octaves <= 0 ||
       BLURS * n_octaves > THREADS || tiles_per_row <= 0 || base < 0 ||
       held <= 0 || base + held > N || t_lo < 0 || t_hi <= t_lo ||
-      t_hi > (N + TR - 1) / TR)
+      t_hi > (N + TR - 1) / TR || (streamed != 0 && streamed != 1))
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (smem_bytes > smem_set[dev]) {
-    e = cudaFuncSetAttribute(fused_ladder_nms_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const void* fn =
+      streamed ? (const void*)fused_ladder_nms_kernel<true>
+               : (const void*)fused_ladder_nms_kernel<false>;
+  if (smem_bytes > smem_set[streamed][dev]) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_bytes);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fused_ladder_nms_kernel,
+      e = cudaFuncSetAttribute(fn,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
-    smem_set[dev] = smem_bytes;
+    smem_set[streamed][dev] = smem_bytes;
   }
   const int out_rows = min(t_hi * TR, N) - t_lo * TR;
   const dim3 grid((t_hi - t_lo) * tiles_per_row, B);
-  fused_ladder_nms_kernel<<<grid, THREADS, smem_bytes,
-                            (cudaStream_t)stream>>>(
+  auto launch = streamed ? fused_ladder_nms_kernel<true>
+                         : fused_ladder_nms_kernel<false>;
+  launch<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(
       cs, nzf, valid, taps, radii, band_v, band_sig, parts, N, DB, R,
       n_octaves, tiles_per_row, base, held, t_lo, out_rows);
   return (int)cudaGetLastError();

@@ -22,7 +22,10 @@ d <= d_px + 1 < DB).
 On a CUDA tensor :func:`fused_ladder_nms_batched` launches the kernel
 (``csrc/fused_ladder.cu``) or raises; on a CPU tensor it runs
 :func:`fused_ladder_nms_reference`. There is no fallback between the two.
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches. The kernel takes every ladder the
+JAX package fuses (:func:`kernel_fits`), in one of two modes that
+:func:`ladder_mode` picks from the ladder alone: the whole input slab in
+shared memory, or the slab streamed through it piece by piece.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ TILE_COLS = 64
 THREADS = 256
 BLURS_PER_OCTAVE = 12
 SMEM_LIMIT = 232_448     # H100 dynamic shared memory per block, bytes
+MAX_RADIUS = 127         # the JAX kernel's column pad less one (CPAD - 1)
+STREAM_COLS = 64         # streamed mode: slab columns a piece holds
+MODES = ("slab", "stream")
 
 LAUNCHES = 0
 
@@ -55,27 +61,47 @@ def n_tiles(N: int, DB: int) -> int:
     return -(-N // TILE_ROWS) * tiles_per_row(DB)
 
 
-def smem_bytes(R: int, n_octaves: int) -> int:
-    """Dynamic shared memory of one block (4-byte words): the ladder's taps
-    (2R + 1 per sigma, padded to a multiple of 4), two buffers of the
-    vertical pass's output (32 rows, pitch 32 ceil((66 + 2R) / 32) + 4),
-    the reflected input slab (32 + 2R) x (66 + 2R), the radii, and the
-    per-warp partials of every plane."""
+def smem_bytes(R: int, n_octaves: int, mode: str | None = None) -> int:
+    """Dynamic shared memory of one block (4-byte words) in ``mode``
+    (default: the mode the ladder takes, :func:`ladder_mode`): the taps
+    (2R + 1 per sigma, padded to a multiple of 4) of every sigma ("slab")
+    or of one octave's 12 ("stream"), two buffers of the vertical pass's
+    output (32 rows, pitch 32 ceil((66 + 2R) / 32) + 4), the reflected
+    input slab (32 + 2R) x (66 + 2R) ("slab") or one piece of it, (32 +
+    2R) x ``STREAM_COLS`` ("stream"), the radii, and the per-warp
+    partials of every plane."""
+    mode = ladder_mode(R, n_octaves) if mode is None else mode
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     S = BLURS_PER_OCTAVE * n_octaves
     gr, gc = TILE_ROWS + 2, TILE_COLS + 2       # blurs: tile + NMS halo
     sw = gc + 2 * R                             # slab row: + conv radius
     tp = 32 * -(-sw // 32) + 4
     planes = (BLURS_PER_OCTAVE - 3) * n_octaves
-    words = S * 4 * -(-(2 * R + 1) // 4) + 2 * gr * tp + (gr + 2 * R) * sw \
-        + S + 2 * planes * (THREADS // 32)
+    held = S if mode == "slab" else BLURS_PER_OCTAVE
+    cols = sw if mode == "slab" else STREAM_COLS
+    words = held * 4 * -(-(2 * R + 1) // 4) + 2 * gr * tp \
+        + (gr + 2 * R) * cols + S + 2 * planes * (THREADS // 32)
     return 4 * words
 
 
+def ladder_mode(R: int, n_octaves: int) -> str:
+    """The kernel's mode for a ladder, from its radius and octaves alone:
+    ``"slab"`` (the whole slab in shared memory, loaded once per tile)
+    when it fits one block, else ``"stream"`` (the slab streamed through
+    shared memory piece by piece, per sigma; csrc/fused_ladder.cu)."""
+    return ("slab" if smem_bytes(R, n_octaves, "slab") <= SMEM_LIMIT
+            else "stream")
+
+
 def kernel_fits(R: int, n_octaves: int) -> bool:
-    """The gate: the ladder radius fits one block's shared memory, and
-    the ladder's blurs fit one block's threads (one radius each)."""
-    return (BLURS_PER_OCTAVE * n_octaves <= THREADS
-            and smem_bytes(R, n_octaves) <= SMEM_LIMIT)
+    """The gate, the JAX package's (``_resolve_pallas``): the per-plane
+    partials of at most 6 octaves (2 x 10 lanes an octave in 128), a
+    ladder radius inside the JAX kernel's column pad (R <= 127), and the
+    ladder's blurs within one block's threads (one radius each). Every
+    such ladder fits one block's shared memory in the mode it takes."""
+    return (2 * 10 * n_octaves <= 128 and R <= MAX_RADIUS
+            and BLURS_PER_OCTAVE * n_octaves <= THREADS)
 
 
 def ladder_radii(kernels: torch.Tensor, R: int) -> torch.Tensor:
@@ -177,7 +203,9 @@ def fused_ladder_window(cs, nzf, kernels, *, R: int, n_octaves: int,
     then sum |L| per plane; :func:`reduce_parts` reduces them). Launches
     of the parts of a block, concatenated in order, equal the whole-block
     launch bit for bit. CPU tensors run the plain version, whose tiles
-    are whole row tiles; CUDA tensors launch the kernel."""
+    are whole row tiles; CUDA tensors launch the kernel in the ladder's
+    mode (:func:`ladder_mode`; the two modes give the same bits, so the
+    plain version has none)."""
     global LAUNCHES
     B, held, Nc = cs.shape
     N = Nc if N is None else N
@@ -191,8 +219,10 @@ def fused_ladder_window(cs, nzf, kernels, *, R: int, n_octaves: int,
     if cs.device.type != "cuda":
         raise ValueError(f"unsupported device {cs.device}")
     if not kernel_fits(R, n_octaves):
-        raise ValueError(f"ladder radius {R} needs {smem_bytes(R, n_octaves)}"
-                         f" B of shared memory (limit {SMEM_LIMIT})")
+        raise ValueError(f"a ladder of radius {R} and {n_octaves} octaves is "
+                         f"beyond the kernel's gate (R <= {MAX_RADIUS}, at "
+                         f"most 6 octaves)")
+    mode = ladder_mode(R, n_octaves)
     from mustache_tpu_torch.kernels.build import load
 
     lib = load("fused_ladder", bind)
@@ -221,8 +251,8 @@ def fused_ladder_window(cs, nzf, kernels, *, R: int, n_octaves: int,
             cs.data_ptr(), nzf.data_ptr(), valid.data_ptr(),
             kernels.data_ptr(), radii.data_ptr(), band_v.data_ptr(),
             band_sig.data_ptr(), parts.data_ptr(), B, N, DB, R, n_octaves,
-            tiles_per_row(DB), base, held, t_lo, t_hi,
-            smem_bytes(R, n_octaves), stream)
+            tiles_per_row(DB), base, held, t_lo, t_hi, int(mode == "stream"),
+            smem_bytes(R, n_octaves, mode), stream)
     if rc != 0:
         raise RuntimeError("fused_ladder_nms launch failed: "
                            + lib.mtt_error_string(rc).decode())
@@ -251,7 +281,7 @@ def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """ctypes signatures of csrc/fused_ladder.cu's C entry points."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.mtt_fused_ladder_nms.argtypes = [vp] * 8 + [ci] * 10 + [
+    lib.mtt_fused_ladder_nms.argtypes = [vp] * 8 + [ci] * 11 + [
         ctypes.c_size_t, vp]
     lib.mtt_fused_ladder_nms.restype = ci
     lib.mtt_error_string.argtypes = [ci]

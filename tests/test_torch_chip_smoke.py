@@ -1,6 +1,7 @@
 """chip_smoke.py off the card: it refuses to run without CUDA, and its
 golden comparisons, near-tie check, kernel bound, file writers, band
-check and phase 8's plain kernel route behave as documented."""
+check, phase 8's plain kernel route and phase 12's golden and launch
+counter behave as documented."""
 
 import os
 import subprocess
@@ -45,6 +46,30 @@ def test_golden_comparison():
     at_pt[0][0] = "chrX"
     at_pt[0][6] = repr(chip_smoke.PT * (1 - 1e-5))
     assert chip_smoke.compare_to_golden(golden + at_pt, golden)[0] == 290
+
+
+def test_oct5_golden_and_launch_counter():
+    """Phase 12's golden (the JAX package at sigma0 1.6 -oc 5) is a
+    reference-format TSV of the same chromosome, and ``counted`` records
+    each call's fused launches from 0."""
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+
+    header, golden = chip_smoke.read_tsv(chip_smoke.GOLDEN_OCT5)
+    assert header == chip_smoke.read_tsv(chip_smoke.GOLDEN)[0]
+    assert len(golden) == 290 and {r[0] for r in golden} == {"chr21"}
+    assert chip_smoke.compare_to_golden(golden, golden) == (290, 0.0)
+
+    def launch(n):
+        fl.LAUNCHES += n
+        return n
+    saved = fl.LAUNCHES
+    fl.LAUNCHES = 7
+    try:
+        run, counts = chip_smoke.counted(lambda: launch(len(counts) + 1))
+        assert [run(), run(), run()] == [1, 2, 3]
+        assert counts == [1, 2, 3]
+    finally:
+        fl.LAUNCHES = saved
 
 
 def test_near_tie_margin():
@@ -289,7 +314,8 @@ def test_phase8_helpers():
     assert chip_smoke.loops_tsv_rows(loops, "chr1", 5000) == \
         chip_smoke.read_tsv(path)[1]
 
-    cfg = DetectionConfig(octaves=5)
+    cfg = DetectionConfig(octaves=6)          # phase 8 (f): R=220
+    assert D.resolve_route(cfg) == "ladder"
     spec = build_ladder((1.6, 3.2))
     taps = ladder_tensor(spec.kernels, torch.device("cpu"))
     cs = torch.rand(1, 96, 96)
@@ -302,6 +328,12 @@ def test_phase8_helpers():
     assert (D.resolve_route, fl.fused_ladder_nms_batched) == saved
     want = fl.fused_ladder_nms_reference(cs, nzf, taps, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # phase 3's streamed mode on a slab-mode ladder, and back
+    with chip_smoke.streamed_mode():
+        assert fl.ladder_mode(spec.radius, 2) == "stream"
+        assert fl.smem_bytes(spec.radius, 2) == fl.smem_bytes(
+            spec.radius, 2, "stream")
+    assert fl.ladder_mode(spec.radius, 2) == "slab"
 
 
 def test_inter_golden_comparison():

@@ -159,8 +159,9 @@ def _jax_diff_p(cs1, cs2, nz1, nz2, kernels_sel, Dl):
     return np.asarray(jnp.stack(dps, axis=1))
 
 
-@pytest.mark.parametrize("n,d_px,octaves", [(256, 64, (1.6, 3.2)),
-                                            (200, 40, (1.6, 3.2, 6.4))])
+@pytest.mark.parametrize("n,d_px,octaves", [
+    (256, 64, (1.6, 3.2)), (200, 40, (1.6, 3.2, 6.4)),
+    (256, 64, (1.6, 3.2, 6.4, 12.8, 25.6))])     # -oc 5: R=110
 def test_diff_planes_match_jax(n, d_px, octaves):
     bands = _bands(n + 40, d_px, n, (11, 12))
     slices = torch.stack([b[20:20 + n] for b in bands])

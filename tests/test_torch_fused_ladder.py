@@ -79,6 +79,10 @@ def _assert_state_equal(want, got, nz, DB):
     (256, 64, (1.6, 3.2)),
     (200, 40, (1.6, 3.2)),
     (256, 64, (1.6, 3.2, 6.4)),
+    # the streamed mode's ladders: sigma0 1.6 -oc 5 (R=110) and sigma0
+    # 3.0 -oc 4 (R=103)
+    (256, 64, (1.6, 3.2, 6.4, 12.8, 25.6)),
+    (300, 64, (3.0, 6.0, 12.0, 24.0)),
 ])
 def test_plain_matches_pallas_interpret(n, d_px, octaves):
     cs, nz = _sentinel_block(n, d_px, seed=91)
@@ -156,17 +160,43 @@ def test_tile_grid_covers_band_exactly(DB):
 
 
 def test_shared_memory_gate():
-    for octaves in (2, 3):
-        spec = build_ladder(DetectionConfig(octaves=octaves).octave_values)
-        assert fl.smem_bytes(spec.radius, octaves) <= fl.SMEM_LIMIT
-        assert fl.kernel_fits(spec.radius, octaves)
+    """Every ladder the JAX package fuses (at most 6 octaves, R <= 127)
+    passes the gate and fits one block's shared memory in the mode it
+    takes: the slab mode wherever the whole slab fits, else the streamed
+    one; no other ladder passes."""
+    modes = set()
+    for sigma0 in (0.5, 1.0, 1.6, 2.0, 2.5, 3.0, 4.0):
+        for octaves in range(1, 8):
+            spec = build_ladder(DetectionConfig(
+                sigma0=sigma0, octaves=octaves).octave_values)
+            R = spec.radius
+            fits = octaves <= 6 and R <= 127
+            assert fl.kernel_fits(R, octaves) == fits, (sigma0, octaves)
+            if not fits:
+                continue
+            mode = fl.ladder_mode(R, octaves)
+            modes.add(mode)
+            assert fl.smem_bytes(R, octaves) == fl.smem_bytes(R, octaves,
+                                                             mode)
+            assert fl.smem_bytes(R, octaves) <= fl.SMEM_LIMIT
+            assert (mode == "slab") == (
+                fl.smem_bytes(R, octaves, "slab") <= fl.SMEM_LIMIT)
+    assert modes == {"slab", "stream"}
+    # the corner of the domain, and the default and 5-octave ladders
+    assert fl.smem_bytes(127, 6) == 172_192 <= fl.SMEM_LIMIT
+    assert fl.ladder_mode(28, 2) == "slab"
+    assert fl.ladder_mode(110, 5) == "stream"
+    assert fl.smem_bytes(110, 5, "slab") == 419_920
+    with pytest.raises(ValueError, match="mode"):
+        fl.smem_bytes(28, 2, "tiles")
     spec = build_ladder(DetectionConfig(sigma0=1.6, octaves=6).octave_values)
-    assert fl.smem_bytes(spec.radius, 6) > fl.SMEM_LIMIT
-    assert not fl.kernel_fits(spec.radius, 6)
-    # a ladder beyond the kernel's shared memory takes the ladder route
-    # (detect.resolve_route), on every device; so does float64
+    assert spec.radius == 220 and not fl.kernel_fits(spec.radius, 6)
+    # a ladder beyond the gate takes the ladder route (detect.resolve_route),
+    # on every device; so does float64
     assert build_detector(DetectionConfig(octaves=6), 2000,
                           device=resolve_device("cpu")).route == "ladder"
+    assert build_detector(DetectionConfig(octaves=5), 2000,
+                          device=resolve_device("cpu")).route == "kernel"
     det = build_detector(DetectionConfig(precision="float64"), 2000,
                          device=resolve_device("cpu"))
     assert det.route == "ladder" and det.taps.dtype == torch.float64

@@ -3,11 +3,14 @@ XLA path in torch ops) on the CPU: the route table; float64 block
 detection against the JAX package's float64 ``fn_single`` (rows, their
 order, anchors and scales exact, q within rtol 1e-9) and against the
 scipy oracle at the JAX test's own tolerance (rtol 1e-5, atol 1e-11), on
-tests/test_detect.py's block; float32 with ``use_pallas="off"`` and an
-oversized ladder (5 octaves, radius 110) against the JAX XLA path under
-the f32 rule (rows exact, q within rtol 2e-4); the band blur against the
+tests/test_detect.py's block; float32 with ``use_pallas="off"`` and a
+5-octave ladder (radius 110) on both routes against the JAX XLA path
+under the f32 rule (rows exact, q within rtol 2e-4); the kernel route
+against the JAX fused gate over a grid of ladders; the band blur against the
 dense two-pass blur; and the f32 kernel route's q against the float64
 route's on a map where the two packages' f32 paths part (PERF.md §6)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -47,11 +50,11 @@ def _one_torch_thread():
     (dict(use_pallas="on"), "kernel"),
     (dict(use_pallas="on", precision="float64"), "ladder"),
     (dict(octaves=3), "kernel"),
-    (dict(octaves=4), "kernel"),              # 174,144 B, R=55
-    (dict(octaves=5), "ladder"),              # 419,920 B, R=110
-    (dict(octaves=6), "ladder"),
-    (dict(sigma0=3.0, octaves=4), "ladder"),  # 376,128 B
-    (dict(sigma0=2.0, octaves=5), "ladder"),
+    (dict(octaves=4), "kernel"),              # slab mode, 174,144 B, R=55
+    (dict(octaves=5), "kernel"),              # streamed, 153,136 B, R=110
+    (dict(octaves=6), "ladder"),              # R=220 > 127
+    (dict(sigma0=3.0, octaves=4), "kernel"),  # streamed, 148,160 B, R=103
+    (dict(sigma0=2.0, octaves=5), "ladder"),  # R=138 > 127
 ])
 def test_resolve_route(kw, route):
     cfg = DetectionConfig(**kw)
@@ -65,6 +68,23 @@ def test_resolve_route(kw, route):
     assert det.route == route
     assert det.taps.dtype == (torch.float64 if cfg.precision == "float64"
                               else torch.float32)
+
+
+@pytest.mark.parametrize("precision", ["float32", "float64"])
+@pytest.mark.parametrize("sigma0", [1.0, 1.6, 2.0, 2.5, 3.0, 4.0])
+def test_resolve_route_is_the_jax_gate(sigma0, precision):
+    """The port's kernel route is exactly the JAX package's fused domain:
+    ``resolve_route == "kernel"`` iff ``_resolve_pallas`` fuses the same
+    configuration with ``use_pallas="on"``, for octaves 1-7."""
+    for octaves in range(1, 8):
+        cfg = DetectionConfig(sigma0=sigma0, octaves=octaves,
+                              precision=precision)
+        jcfg = JaxConfig(**{f: getattr(cfg, f)
+                            for f in cfg.__dataclass_fields__})
+        fused = jdetect._resolve_pallas(dataclasses.replace(
+            jcfg, use_pallas="on"))
+        assert (tdetect.resolve_route(cfg) == "kernel") == fused, (
+            sigma0, octaves, precision)
 
 
 def test_resolve_route_rejects_unknown_precision():
@@ -135,19 +155,41 @@ def test_f64_block_matches_oracle(f64_block):
                  rtol=1e-5, atol=1e-11)
 
 
+@pytest.fixture(scope="module")
+def jax_xla_rows():
+    """The JAX package's f32 XLA rows of a block, computed once per
+    (n, d_px, seed, octaves) in this module: both of the port's routes
+    are held to the same rows."""
+    cache = {}
+
+    def rows(n, d_px, seed, cfg):
+        key = (n, d_px, seed, cfg.octaves)
+        if key not in cache:
+            mode, jdetect._BH_MODE = jdetect._BH_MODE, "sort"
+            try:
+                c = _block(n, d_px, seed, n_loops=12).astype(np.float32)
+                cache[key] = c, _jax_rows(c, cfg.with_(use_pallas="off"))
+            finally:
+                jdetect._BH_MODE = mode
+        return cache[key]
+    return rows
+
+
 @pytest.mark.parametrize("n,d_px,seed,kw", [
     (700, 120, 12, dict(use_pallas="off")),
-    # 5 octaves: radius 110, beyond the kernel's shared memory; the
-    # smallest block that holds the pad and enough tested pixels
+    # 5 octaves: radius 110, the kernel route in the streamed mode (here
+    # its plain version) and the ladder route; the smallest block that
+    # holds the pad and enough tested pixels
     (300, 64, 13, dict(octaves=5)),
+    (300, 64, 13, dict(octaves=5, use_pallas="off")),
 ])
-def test_f32_ladder_matches_jax_xla(n, d_px, seed, kw, monkeypatch):
-    monkeypatch.setattr(jdetect, "_BH_MODE", "sort")
+def test_f32_ladder_matches_jax_xla(n, d_px, seed, kw, jax_xla_rows):
     cfg = DetectionConfig(resolution=5000, distance_bp=d_px * 5000, pt=0.2,
                           st=0.88, min_tested=5000, **kw)
-    assert tdetect.resolve_route(cfg) == "ladder"
-    c = _block(n, d_px, seed, n_loops=12).astype(np.float32)
-    _assert_rows(_port_rows(c, cfg), _jax_rows(c, cfg), rtol=2e-4)
+    assert tdetect.resolve_route(cfg) == (
+        "ladder" if kw.get("use_pallas") == "off" else "kernel")
+    c, want = jax_xla_rows(n, d_px, seed, cfg)
+    _assert_rows(_port_rows(c, cfg), want, rtol=2e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

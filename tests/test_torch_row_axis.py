@@ -150,7 +150,8 @@ def test_ladder_route_float64_within_1e9(blocks):
 
 @pytest.mark.parametrize("n,octaves,n_parts", [
     (256, (1.6, 3.2), 2), (256, (1.6, 3.2), 4), (241, (1.6, 3.2), 3),
-    (128, (1.6, 3.2, 6.4, 12.8), 3)])
+    (128, (1.6, 3.2, 6.4, 12.8), 3),
+    (256, (1.6, 3.2, 6.4, 12.8, 25.6), 4)])        # -oc 5: R=110
 def test_windowed_plain_kernel_is_the_whole_call(blocks, n, octaves,
                                                   n_parts):
     """``fused_ladder_nms_reference`` on each row window equals the whole

@@ -25,6 +25,10 @@ modes) and writes the reference-format TSV:
   host normalize, sort-mode BH), to
   ``tests/data/torch_port_chr21_5kb_f64_golden.tsv`` and
   ``tests/data/torch_port_chr21_5kb_diff_f64_golden.tsv``;
+* ``oct5_5kb``: the ``5kb`` workload at float32 with ``octaves=5``
+  (sigma0 1.6: the ladder's radius is 110, inside the JAX fused
+  kernel's gate; on the CPU the JAX package runs its XLA path),
+  sort-mode BH, to ``tests/data/torch_port_chr21_5kb_oct5_golden.tsv``;
 * ``exact_5kb``: the ``5kb`` workload at float32 with
   ``exact_normalize=True`` (the host normalize in the reference's
   summation order, then the float32 XLA path; sort-mode BH), to
@@ -97,6 +101,9 @@ SLICES = {
     "exact_5kb": ((9629, 400), dict(seed=2021, n_loops=300,
                                     loop_strength=3.0),
                   5000, "chr21", "sort"),
+    "oct5_5kb": ((9629, 400), dict(seed=2021, n_loops=300,
+                                   loop_strength=3.0),
+                 5000, "chr21", "sort"),
     "inter_5kb": ((9342, 10164), dict(seed=2121, n_loops=300), 5000,
                   ("chr21", "chr22"), None),
     "cpu_f64": (None, None, 5000, None, "sort"),
@@ -120,6 +127,8 @@ OUT = {"5kb": os.path.join(ROOT, "tests", "data",
                                     "torch_port_chr21_5kb_diff_f64_golden.tsv"),
        "exact_5kb": os.path.join(ROOT, "tests", "data",
                                  "torch_port_chr21_5kb_exact_golden.tsv"),
+       "oct5_5kb": os.path.join(ROOT, "tests", "data",
+                                "torch_port_chr21_5kb_oct5_golden.tsv"),
        "inter_5kb": os.path.join(ROOT, "tests", "data",
                                  "torch_port_inter_5kb_golden.tsv"),
        "cpu_f64": os.path.join(ROOT, "tests", "data",
@@ -426,7 +435,8 @@ def main():
     x, y, v, _ = synthetic_hic(*shape, **kw)
     cfg = DetectionConfig(
         resolution=res, distance_bp=2_000_000, pt=0.1, st=0.8, pt2=0.1,
-        precision="float64" if "f64" in args.slice else "float32")
+        precision="float64" if "f64" in args.slice else "float32",
+        octaves=5 if args.slice == "oct5_5kb" else 2)
     if args.slice in ("diff5kb", "diff_f64_5kb"):
         from mustache_tpu.diff import detect_diff_loops_coo
 
