@@ -26,7 +26,11 @@ Phases, in order; any failure exits non-zero:
    computes the fused function) timed with CUDA events; the kernel held
    against its FP32 bound from the FLOP the algorithm needs; the 2- and
    4-octave shapes also launched in the streamed mode, bit-identical to
-   the slab mode, and timed;
+   the slab mode (also on their blocks cut to N - 2, where the streamed
+   mode copies the slab with cp.async alone), and timed; each shape's
+   CTAs per SM and resident clusters (the CUDA occupancy API,
+   ``cudaOccupancyMaxActiveClusters``), and the FMAs its passes execute
+   per FMA the cells need, counted from the kernel's geometry;
 4. end to end: the bench headline workload (synthetic chr21 at 5 kb,
    6 blocks of 2000^2) through ``detect_loops_coo`` with no device given
    (the card by default) and ``write_loops``; the kernel must have
@@ -348,6 +352,33 @@ def kernel_bound(spec, N, DB, n_real, rows=None):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def executed_fmas(spec, N, DB, n_real, mode, cluster):
+    """FMAs the kernel's two passes execute on the whole-block launch,
+    counted from its geometry (csrc/fused_ladder.cu), every tile with
+    cells taken to have support (so an upper bound): per sigma of radius
+    r, the horizontal pass 80 columns x 32 rows x (2r + 1) taps per tile;
+    the vertical pass 66 + 2r columns x 32 rows per tile ("slab"), or 64
+    m + 2 + 2r columns per cluster of ``cluster`` tiles of which m have
+    cells ("stream")."""
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from mustache_tpu_torch.scalespace import kernel_radius
+
+    taps = [2 * kernel_radius(s) + 1 for s in spec.blur_sigmas]
+    tpr = fl.tiles_per_row(DB)
+    vert = horiz = 0
+    for ti in range(fl.row_tiles(N)):
+        r0 = ti * fl.TILE_ROWS
+        with_cells = min(tpr, -(-(N - r0) // fl.TILE_COLS))
+        horiz += with_cells * 80 * 32 * sum(taps)
+        if mode == "slab":
+            vert += with_cells * 32 * sum((65 + t) * t for t in taps)
+            continue
+        for k0 in range(0, with_cells, cluster):
+            m = min(cluster, with_cells - k0)
+            vert += 32 * sum((64 * m + 1 + t) * t for t in taps)
+    return n_real * (vert + horiz)
+
+
 def blur_only(cs, taps, spec, valid):
     """cuDNN's two-pass blur of every real block, all octaves (allow_tf32
     off): the yardstick for the blur part alone."""
@@ -489,8 +520,12 @@ def phase_kernel_vs_plain(dev):
                                            seed=7)
         R, n_oct = spec.radius, len(octaves)
         mode = fl.ladder_mode(R, n_oct)
+        cluster = fl.CLUSTER if mode == "stream" else 1
+        ctas, clusters = fl.occupancy(R, n_oct, dev)
         say(f"[3] {label}: octaves {octaves}, R={R}, mode {mode}, "
-            f"{fl.smem_bytes(R, n_oct)} B of shared memory a block")
+            f"{fl.smem_bytes(R, n_oct)} B of shared memory a CTA, cluster "
+            f"{cluster}, {ctas} CTAs per SM, {clusters} clusters resident "
+            f"(cudaOccupancyMaxActiveClusters)")
         err, locs_err, sums_rel, n_sig, kw = hold_to_plain(
             "3", label, cs, nzf, slices, VALID, spec, taps, radii, d_px, DB)
         ms = cuda_ms(lambda: fl.fused_ladder_nms_batched(
@@ -508,16 +543,34 @@ def phase_kernel_vs_plain(dev):
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 fail(f"{label}: the streamed mode differs from the slab "
                      f"mode")
-            del got, want
+            # the blocks cut to N - 2 rows and columns (N % 4 != 0): the
+            # streamed mode's slab copies all take the cp.async path
+            cut = [t[:, :N - 2, :N - 2].contiguous() for t in (cs, nzf)]
+            want = fl.fused_ladder_nms_batched(*cut, taps, radii=radii, **kw)
+            with streamed_mode():
+                got = fl.fused_ladder_nms_batched(*cut, taps, radii=radii,
+                                                  **kw)
+                torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"{label}: the streamed mode differs from the slab "
+                     f"mode at N = {N - 2}")
+            del got, want, cut
             say(f"[3] {label}: streamed mode "
-                f"({fl.smem_bytes(R, n_oct, 'stream')} B) bit-identical to "
-                f"the slab mode; {stream_ms:.4f} ms against the slab "
-                f"mode's {ms:.4f} ms")
+                f"({fl.smem_bytes(R, n_oct, 'stream')} B, cluster "
+                f"{fl.CLUSTER}) bit-identical to "
+                f"the slab mode, also at N = {N - 2}; {stream_ms:.4f} ms "
+                f"against the slab mode's {ms:.4f} ms")
         plain_ms = cuda_ms(
             lambda: fl.fused_ladder_nms_reference(cs, nzf, taps, **kw), reps=2)
         blur_ms = cuda_ms(lambda: blur_only(cs, taps, spec, VALID), reps=3)
         flop, nbytes, bound_ms, bound_by = kernel_bound(
             spec, N, DB, sum(VALID))
+        fma_ratio = executed_fmas(spec, N, DB, sum(VALID), mode,
+                                  cluster) / (flop / 2)
+        say(f"[3] {label}: counted from the kernel's geometry, not "
+            f"measured: its passes execute at most {fma_ratio:.3f} times "
+            f"the FMAs the band cells need (every tile with cells counted "
+            f"as having support)")
         say(f"[3] {label}: significant candidates {n_sig} equal; band_v max "
             f"abs err {err:.3g}, locs {locs_err:.3g}, sums rel "
             f"{sums_rel:.3g}; two launches bit-identical")
@@ -529,7 +582,8 @@ def phase_kernel_vs_plain(dev):
         report[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              blur_ms=blur_ms, bound_ms=bound_ms,
                              bound_by=bound_by, share=bound_ms / ms,
-                             mode=mode, stream_ms=stream_ms)
+                             mode=mode, stream_ms=stream_ms,
+                             ctas_per_sm=ctas, max_clusters=clusters)
         del cs, nzf, slices
         torch.cuda.empty_cache()
     return report
@@ -2513,7 +2567,8 @@ def phase_oct5(dev, workdir):
     spec = build_detector(cfg, 2000, device=dev).spec
     R = spec.radius
     say(f"[12] sigma0 1.6, 5 octaves: R={R}, kernel mode "
-        f"{fl.ladder_mode(R, 5)}, {fl.smem_bytes(R, 5)} B a block")
+        f"{fl.ladder_mode(R, 5)}, {fl.smem_bytes(R, 5)} B a CTA, clusters "
+        f"of {fl.CLUSTER}")
     _, golden = read_tsv(GOLDEN_OCT5)
 
     # (a) detect_loops_coo: the kernel route against the golden, and the
@@ -2859,6 +2914,9 @@ def main():
            for key in ("ms", "plain_ms", "bound_ms")},
         "ms_full_block_b6_oct5": oct5["ms_full_block_b6_oct5"],
         "launches_oct6": 0,
+        "ctas_per_sm": {k: r["ctas_per_sm"] for k, r in report.items()},
+        "max_active_clusters": {k: r["max_clusters"]
+                                for k, r in report.items()},
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

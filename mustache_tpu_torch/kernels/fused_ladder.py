@@ -25,7 +25,9 @@ On a CUDA tensor :func:`fused_ladder_nms_batched` launches the kernel
 ``LAUNCHES`` counts kernel launches. The kernel takes every ladder the
 JAX package fuses (:func:`kernel_fits`), in one of two modes that
 :func:`ladder_mode` picks from the ladder alone: the whole input slab in
-shared memory, or the slab streamed through it piece by piece.
+shared memory, or, for the large ladders, clusters of ``CLUSTER`` CTAs
+that share one vertical pass over their tiles' columns and stream the
+slab through shared memory in chunks.
 """
 
 from __future__ import annotations
@@ -44,7 +46,18 @@ THREADS = 256
 BLURS_PER_OCTAVE = 12
 SMEM_LIMIT = 232_448     # H100 dynamic shared memory per block, bytes
 MAX_RADIUS = 127         # the JAX kernel's column pad less one (CPAD - 1)
-STREAM_COLS = 64         # streamed mode: slab columns a piece holds
+STREAM_COLS = 64         # streamed mode: tmp columns a piece computes
+CHUNK_ROWS = 32          # streamed mode: slab rows a ring item holds
+RING_SLOTS = 3           # streamed mode: ring items resident at once
+RING_PITCH = STREAM_COLS + 4   # a piece from the aligned column below it
+# streamed mode: CTAs a thread-block cluster (the kernel's CLUSTER). At
+# every ladder of that mode (R <= 127, at most 6 octaves: at most 114,612
+# B a CTA) two CTAs of a 4-cluster fit an SM, and on an H100 4 ran faster
+# than 2, 3, 5, 6 and 8 on every streamed shape (PERF.md, measured with
+# tools/stream_variants.py). A grid whose tiles_per_row 4 does not divide
+# (always: it is odd) is padded to whole clusters: the padding ranks
+# compute their part of the vertical pass and write nothing.
+CLUSTER = 4
 MODES = ("slab", "stream")
 
 LAUNCHES = 0
@@ -61,15 +74,50 @@ def n_tiles(N: int, DB: int) -> int:
     return -(-N // TILE_ROWS) * tiles_per_row(DB)
 
 
+def _ceil4(x: int) -> int:
+    return 4 * -(-x // 4)
+
+
+def share_pitch(R: int) -> int:
+    """Streamed mode: the columns of one rank's share buffer: room for the
+    most pieces a rank takes of any sigma (radius <= R)
+    (:func:`share_columns` at r = R, m = CLUSTER)."""
+    pieces = -(-(TILE_COLS * CLUSTER + 2 + 2 * R) // STREAM_COLS)
+    return STREAM_COLS * -(-pieces // CLUSTER)
+
+
+def share_columns(r: int, m: int = CLUSTER):
+    """Streamed mode: how a cluster splits one sigma's vertical pass. Its
+    ``m`` tiles with cells (a prefix of its CLUSTER ranks) read the union
+    of tmp columns ``[0, U)``, U = 64 m + 2 + 2r (tile q reads ``[64 q, 64
+    q + 66 + 2r)``). The union is cut into pieces of 64 columns (the last
+    narrower), dealt to the ranks in turn: union piece P is rank ``P %
+    CLUSTER``'s piece ``P // CLUSTER``, at columns ``[64 (P // CLUSTER),
+    ...)`` of its share buffer. Returns ``(U, [[(first union column,
+    width) of each piece] per rank])``; the kernel's ``share_of``
+    (csrc/fused_ladder.cu) computes the same."""
+    U = TILE_COLS * m + 2 + 2 * r
+    ranks = [[] for _ in range(CLUSTER)]
+    for P in range(-(-U // STREAM_COLS)):
+        ranks[P % CLUSTER].append(
+            (STREAM_COLS * P, min(STREAM_COLS, U - STREAM_COLS * P)))
+    return U, ranks
+
+
 def smem_bytes(R: int, n_octaves: int, mode: str | None = None) -> int:
-    """Dynamic shared memory of one block (4-byte words) in ``mode``
-    (default: the mode the ladder takes, :func:`ladder_mode`): the taps
-    (2R + 1 per sigma, padded to a multiple of 4) of every sigma ("slab")
-    or of one octave's 12 ("stream"), two buffers of the vertical pass's
-    output (32 rows, pitch 32 ceil((66 + 2R) / 32) + 4), the reflected
-    input slab (32 + 2R) x (66 + 2R) ("slab") or one piece of it, (32 +
-    2R) x ``STREAM_COLS`` ("stream"), the radii, and the per-warp
-    partials of every plane."""
+    """Dynamic shared memory of one CTA (4-byte words) in ``mode``
+    (default: the mode the ladder takes, :func:`ladder_mode`).
+
+    "slab": the taps (2R + 1 per sigma, padded to a multiple of 4) of
+    every sigma, two buffers of the vertical pass's output (32 rows,
+    pitch TP = 32 ceil((66 + 2R) / 32) + 4), the reflected input slab
+    (32 + 2R) x (66 + 2R), the radii and the per-warp partials of every
+    plane. "stream" (clusters of ``CLUSTER`` CTAs): the taps of two
+    sigmas (padded to 32 words: the ring after them is 128-byte aligned),
+    the horizontal pass's input (32 x TP), the ring (three chunks of 32
+    rows and 31 mirror rows, pitch 68), two buffers of the rank's share
+    (32 x :func:`share_pitch`), the ring's mbarriers (8 words), the radii,
+    the cluster's support flag and the partials."""
     mode = ladder_mode(R, n_octaves) if mode is None else mode
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -77,19 +125,31 @@ def smem_bytes(R: int, n_octaves: int, mode: str | None = None) -> int:
     gr, gc = TILE_ROWS + 2, TILE_COLS + 2       # blurs: tile + NMS halo
     sw = gc + 2 * R                             # slab row: + conv radius
     tp = 32 * -(-sw // 32) + 4
+    tw = _ceil4(2 * R + 1)
     planes = (BLURS_PER_OCTAVE - 3) * n_octaves
-    held = S if mode == "slab" else BLURS_PER_OCTAVE
-    cols = sw if mode == "slab" else STREAM_COLS
-    words = held * 4 * -(-(2 * R + 1) // 4) + 2 * gr * tp \
-        + (gr + 2 * R) * cols + S + 2 * planes * (THREADS // 32)
+    parts = 2 * planes * (THREADS // 32)
+    if mode == "slab":
+        words = S * tw + 2 * gr * tp + (gr + 2 * R) * sw + S + parts
+    else:
+        ring = (RING_SLOTS * CHUNK_ROWS + CHUNK_ROWS - 1) * RING_PITCH
+        words = (32 * -(-2 * tw // 32) + gr * tp + ring
+                 + 2 * gr * share_pitch(R) + 8 + S + 1 + parts)
     return 4 * words
+
+
+def grid_tiles_per_row(DB: int) -> int:
+    """CTAs a row tile takes in the streamed mode's grid:
+    ``tiles_per_row`` padded to whole clusters (the slab mode's grid takes
+    ``tiles_per_row``)."""
+    return CLUSTER * -(-tiles_per_row(DB) // CLUSTER)
 
 
 def ladder_mode(R: int, n_octaves: int) -> str:
     """The kernel's mode for a ladder, from its radius and octaves alone:
     ``"slab"`` (the whole slab in shared memory, loaded once per tile)
-    when it fits one block, else ``"stream"`` (the slab streamed through
-    shared memory piece by piece, per sigma; csrc/fused_ladder.cu)."""
+    when it fits one block, else ``"stream"`` (clusters that share the
+    vertical pass and stream the slab through shared memory in chunks;
+    csrc/fused_ladder.cu)."""
     return ("slab" if smem_bytes(R, n_octaves, "slab") <= SMEM_LIMIT
             else "stream")
 
@@ -260,6 +320,25 @@ def fused_ladder_window(cs, nzf, kernels, *, R: int, n_octaves: int,
     return band_v, band_sig, parts
 
 
+def occupancy(R: int, n_octaves: int, device=None) -> tuple[int, int]:
+    """On the card: the CTAs per SM and the clusters resident at once
+    (``cudaOccupancyMaxActiveClusters``; 0 in the slab mode) of the launch
+    the ladder takes, with the attributes a launch sets."""
+    from mustache_tpu_torch.kernels.build import load
+
+    mode = ladder_mode(R, n_octaves)
+    lib = load("fused_ladder", bind)
+    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.mtt_fused_ladder_occupancy(
+            int(mode == "stream"), smem_bytes(R, n_octaves, mode),
+            ctypes.byref(ctas), ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError("fused_ladder_nms occupancy query failed: "
+                           + lib.mtt_error_string(rc).decode())
+    return ctas.value, clusters.value
+
+
 def fused_ladder_nms_batched(cs, nzf, kernels, *, R: int, n_octaves: int,
                              planes_per_octave: int, DB: int, valid=None,
                              radii=None):
@@ -284,6 +363,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mtt_fused_ladder_nms.argtypes = [vp] * 8 + [ci] * 11 + [
         ctypes.c_size_t, vp]
     lib.mtt_fused_ladder_nms.restype = ci
+    lib.mtt_fused_ladder_occupancy.argtypes = [ci, ctypes.c_size_t, vp,
+                                               vp]
+    lib.mtt_fused_ladder_occupancy.restype = ci
     lib.mtt_error_string.argtypes = [ci]
     lib.mtt_error_string.restype = ctypes.c_char_p
     return lib

@@ -101,6 +101,29 @@ def test_kernel_bound_counts_the_ladder():
     assert round(ms, 4) == 0.0627 and round(ms_1kb, 3) == 0.428
 
 
+def test_executed_fmas_count_the_kernel_geometry():
+    """Phase 3's count of the FMAs the kernel's passes execute: by hand on
+    a one-row-tile block, and at the 5 kb `-oc 5` shape the clusters'
+    shared vertical pass executes fewer than the lone tiles' (never fewer
+    than the band cells need)."""
+    from mustache_tpu_torch.scalespace import build_ladder, kernel_radius
+
+    spec = build_ladder((1.6, 3.2))
+    t = [2 * kernel_radius(s) + 1 for s in spec.blur_sigmas]
+    # N = 30, DB = 30: one row tile of one tile with cells
+    horiz = 80 * 32 * sum(t)
+    assert chip_smoke.executed_fmas(spec, 30, 30, 2, "slab", 1) == 2 * (
+        horiz + 32 * sum((65 + k) * k for k in t))
+    assert chip_smoke.executed_fmas(spec, 30, 30, 2, "stream", 4) == 2 * (
+        horiz + 32 * sum((64 + 1 + k) * k for k in t))
+    oct5 = build_ladder((1.6, 3.2, 6.4, 12.8, 25.6))
+    need = chip_smoke.kernel_bound(oct5, 2000, 512, 3)[0] / 2
+    slab = chip_smoke.executed_fmas(oct5, 2000, 512, 3, "slab", 1) / need
+    stream = chip_smoke.executed_fmas(oct5, 2000, 512, 3, "stream", 4) / need
+    assert 1 < stream < slab
+    assert round(slab, 3) == 2.429 and round(stream, 3) == 1.717
+
+
 def test_phase5_writers_read_back(tmp_path):
     """The text and .hic files phase 5 writes read back through the port's
     readers to the same COO (text exactly, in file order; .hic with counts

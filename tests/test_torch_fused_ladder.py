@@ -7,6 +7,9 @@ matmuls on the band here, the TPU kernel's Toeplitz matmuls there). The CUDA ker
 plain version on the card by chip_smoke.py.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -136,30 +139,112 @@ def test_tile_grid_covers_band_exactly(DB):
     """The launched tiles (row tile ti, column tile k < tiles_per_row,
     those starting at a column < N; the kernel returns at once from the
     rest) cover each band cell 0 <= j - i < DB, j < N, exactly once, and
-    each of them meets the band."""
+    each of them meets the band. The same with the streamed mode's grid,
+    padded to whole clusters per row tile (CTA x of the launch is column
+    tile x % tpg of row tile x // tpg): the padding CTAs (k >=
+    tiles_per_row) write nothing, the parts index of the rest is the slab
+    grid's (row tile, k), so the parts tensor and its reduction are the
+    same for both grids."""
     TR, TC = fl.TILE_ROWS, fl.TILE_COLS
     N = DB + 97
-    cover = np.zeros((N, N), np.int16)
     tpr = fl.tiles_per_row(DB)
-    launched = 0
-    for t in range(fl.n_tiles(N, DB)):
-        ti, k = divmod(t, tpr)
-        r0, c0 = ti * TR, ti * TR + k * TC
-        if c0 >= N:
-            continue
-        launched += 1
-        cover[r0:r0 + TR, c0:c0 + TC] += 1
-        i = np.arange(r0, min(r0 + TR, N))[:, None]
-        j = np.arange(c0, min(c0 + TC, N))[None, :]
-        assert ((j - i >= 0) & (j - i < DB)).any(), (ti, k)
-    i = np.arange(N)[:, None]
-    d = np.arange(N)[None, :] - i
-    band = (d >= 0) & (d < DB)
-    assert (cover[band] == 1).all()
-    assert launched > 0
+    for tpg in (tpr, fl.grid_tiles_per_row(DB)):      # slab, streamed
+        cover = np.zeros((N, N), np.int16)
+        parts = np.zeros(fl.n_tiles(N, DB), np.int16)
+        launched = 0
+        for x in range(fl.row_tiles(N) * tpg):
+            ti, k = divmod(x, tpg)
+            r0, c0 = ti * TR, ti * TR + k * TC
+            if k >= tpr:                     # a padding rank: no output
+                continue
+            parts[ti * tpr + k] += 1
+            if c0 >= N:
+                continue
+            launched += 1
+            cover[r0:r0 + TR, c0:c0 + TC] += 1
+            i = np.arange(r0, min(r0 + TR, N))[:, None]
+            j = np.arange(c0, min(c0 + TC, N))[None, :]
+            assert ((j - i >= 0) & (j - i < DB)).any(), (ti, k)
+        i = np.arange(N)[:, None]
+        d = np.arange(N)[None, :] - i
+        band = (d >= 0) & (d < DB)
+        assert (cover[band] == 1).all()
+        assert (parts == 1).all()
+        assert launched > 0
 
 
-def test_shared_memory_gate():
+# an H100 SM's shared memory, and the runtime's reserve per CTA (bytes)
+SM_SMEM, CTA_RESERVED = 233_472, 1_024
+
+
+def ctas_per_sm(nbytes):
+    """CTAs of ``nbytes`` of shared memory an H100 SM holds at once (the
+    kernel's 256 threads at <= 128 registers allow two)."""
+    return 2 if 2 * (nbytes + CTA_RESERVED) <= SM_SMEM else 1
+
+
+def test_cluster_rule_for_every_band_width():
+    """The streamed mode's cluster size is the kernel's, a portable one
+    (1-8 CTAs), and serves every ladder of that mode and every band DB =
+    128 m up to 4096: the padded grid holds whole clusters, pads fewer
+    than one cluster per row tile, and two CTAs fit an SM (the rule's
+    reason)."""
+    src = (Path(fl.__file__).parent / "csrc" / "fused_ladder.cu").read_text()
+    assert re.findall(r"constexpr int CLUSTER = (\d+);", src) == [
+        str(fl.CLUSTER)]
+    c = fl.CLUSTER
+    assert 1 <= c <= 8
+    ladders = [(R, o) for R in (56, 80, 103, 110, 127) for o in range(1, 7)
+               if fl.ladder_mode(R, o) == "stream"]
+    assert (110, 5) in ladders and (127, 6) in ladders
+    for R, o in ladders:
+        assert ctas_per_sm(fl.smem_bytes(R, o, "stream")) == 2
+    for m in range(1, 33):
+        DB = 128 * m
+        tpr, tpg = fl.tiles_per_row(DB), fl.grid_tiles_per_row(DB)
+        assert tpr == 2 * m + 1                      # always odd
+        assert tpg % c == 0 and 0 <= tpg - tpr < c
+    # the pipeline's bands: 9 tiles a row at 5 kb, 33 at 1 kb
+    assert fl.grid_tiles_per_row(512) == 12
+    assert fl.grid_tiles_per_row(2048) == 36
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("r", [14, 55, 103, 110, 127])
+def test_share_columns_partition_the_union(r, m):
+    """A numpy model of the streamed mode's column split, for a cluster
+    whose first m ranks have cells: the ranks' pieces are disjoint, their
+    union is exactly the columns the m tiles' horizontal passes read
+    (tile q: [64 q, 64 q + 66 + 2r)), each piece fits its rank's share
+    buffer at the widest sigma (R = 127 bounds every r here), and the
+    kernel's 16-byte copy groups of tile q, from 64 q up to 66 + 2r
+    rounded up to 4, each sit in one piece and read no column outside
+    the union but the last group's padding."""
+    C, R = fl.CLUSTER, 127
+    assert m <= C
+    pitch = fl.share_pitch(R)
+    assert pitch % 64 == 0
+    U, ranks = fl.share_columns(r, m)
+    assert U == 64 * m + 2 + 2 * r and len(ranks) == C
+    assert sum(w for p in ranks for _, w in p) == U
+    owner = np.full(U, -1)
+    for q, pieces in enumerate(ranks):
+        for j, (u0, width) in enumerate(pieces):
+            assert u0 == 64 * (q + j * C) and 0 < width <= 64
+            assert 64 * j + width <= pitch
+            assert (owner[u0:u0 + width] == -1).all()
+            owner[u0:u0 + width] = q
+    assert (owner >= 0).all()
+    reads = np.zeros(U, bool)
+    for q in range(m):
+        reads[64 * q: 64 * q + 66 + 2 * r] = True
+        for u in range(64 * q, 64 * q + 66 + 2 * r, 4):
+            assert u // 64 == (u + 3) // 64           # one piece a group
+            assert u < U and owner[u] == (u // 64) % C
+    assert reads.all()
+
+
+def test_shared_memory_gate(monkeypatch):
     """Every ladder the JAX package fuses (at most 6 octaves, R <= 127)
     passes the gate and fits one block's shared memory in the mode it
     takes: the slab mode wherever the whole slab fits, else the streamed
@@ -181,9 +266,20 @@ def test_shared_memory_gate():
             assert fl.smem_bytes(R, octaves) <= fl.SMEM_LIMIT
             assert (mode == "slab") == (
                 fl.smem_bytes(R, octaves, "slab") <= fl.SMEM_LIMIT)
+            if mode == "stream":             # two clusters' CTAs an SM
+                assert ctas_per_sm(fl.smem_bytes(R, octaves)) == 2
     assert modes == {"slab", "stream"}
-    # the corner of the domain, and the default and 5-octave ladders
-    assert fl.smem_bytes(127, 6) == 172_192 <= fl.SMEM_LIMIT
+    # the corner of the domain, and the default and 5-octave ladders: the
+    # streamed mode's CTA in clusters of 4, and where two fit (not in
+    # clusters of 3: a rank's share then takes three 64-column pieces)
+    assert fl.CLUSTER == 4
+    assert fl.smem_bytes(127, 6) == 114_612 <= fl.SMEM_LIMIT
+    assert fl.smem_bytes(110, 5) == 109_636
+    assert ctas_per_sm(fl.smem_bytes(127, 6)) == 2
+    assert ctas_per_sm(115_712) == 2 and ctas_per_sm(115_713) == 1
+    monkeypatch.setattr(fl, "CLUSTER", 3)
+    assert fl.smem_bytes(110, 5) == 126_020
+    assert ctas_per_sm(fl.smem_bytes(110, 5)) == 1
     assert fl.ladder_mode(28, 2) == "slab"
     assert fl.ladder_mode(110, 5) == "stream"
     assert fl.smem_bytes(110, 5, "slab") == 419_920
