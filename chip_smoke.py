@@ -154,7 +154,20 @@ Phases, in order; any failure exits non-zero:
    held to the plain version and timed as in phase 7) and the row window
    (four parts joined bit-identical to the whole-block launch, part 2 of
    4 exact against its plain version and timed as in phase 10; the
-   dense runner on 1 x 4 entries of ``cuda:0`` equal to ``n_row = 1``).
+   dense runner on 1 x 4 entries of ``cuda:0`` equal to ``n_row = 1``);
+13. BH modes and the batched epilogue (``detect._BH_MODE``; phases 4-12
+   run the default, count mode): the tie block (50 of 100 tested tied at
+   p = 0.02, pt = 0.05, capacity 35) through ``_band_candidates`` on the
+   card in count mode must report overflow and regrow to sort mode's 50
+   rejections; chr21 5 kb, the 1 kb slice and the two-condition diff in
+   both modes in one process: one batch's candidate tables bit-identical
+   between the modes (counts, valid slots, pass flags, significant
+   neighbours), rows equal between the modes and to the goldens (as in
+   phases 4, 6 and 7), one fused launch a run, warm walls in turns, and
+   from one profiled run per mode the device ms by range (the epilogue's
+   among them), the kernel launches and copies per chromosome, beside the
+   card's name and power limit; chr21 5 kb in batches of 2 (three
+   batches, pipelined) and of 1 gives the rows of one batch.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2785,6 +2798,339 @@ def write_hic_pairs(path, n1, n2, intra, inter):
               norms={("KR", "c1"): np.ones(n1), ("KR", "c2"): np.ones(n2)})
 
 
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+
+BH_MODES = ("count", "sort")
+# the BH tie case: 50 of 100 tested tied at p = 0.02, pt = 0.05, capacity
+# 35, where the JAX package's one-pass overflow test sees nothing
+TIE = dict(n=100, tied=50, p=0.02, pt=0.05, K=35)
+
+
+def bh_reject(p, pt):
+    """Indices a numpy BH (statsmodels ``fdr_bh``'s form) rejects."""
+    order = np.argsort(p, kind="stable")
+    ranked = p[order] * len(p) / np.arange(1, len(p) + 1)
+    q = np.minimum.accumulate(ranked[::-1])[::-1]
+    return set(order[q < pt].tolist())
+
+
+def phase_tie_block(dev):
+    """The tie block through ``_band_candidates`` on the card in count
+    mode: overflow must be reported with sig_count >= 50, and the regrow
+    (``pipeline._maybe_regrow``) must end at sort mode's 50 rejections,
+    which a numpy BH also gives."""
+    from mustache_tpu_torch import DetectionConfig
+    from mustache_tpu_torch import detect as td
+    from mustache_tpu_torch.pipeline import _maybe_regrow
+
+    rng = np.random.default_rng(13)
+    p = np.concatenate([np.full(TIE["tied"], TIE["p"]),
+                        rng.uniform(0.5, 1.0, TIE["n"] - TIE["tied"])])
+    rng.shuffle(p)
+    N, d_px = 16, 8
+    geom = td._BandGeom(N, d_px, dev)
+    cells = torch.nonzero(geom.band_validl.reshape(-1))[:TIE["n"], 0]
+    logp = torch.full((N * geom.Dl,), math.inf, device=dev)
+    logp[cells] = torch.from_numpy(np.log(p).astype(np.float32)).to(dev)
+    nz = torch.zeros(N * geom.Dl, dtype=torch.bool, device=dev)
+    nz[cells] = True
+    shape = (1, N, geom.Dl)
+    log_pt = float(np.float32(math.log(TIE["pt"])))
+    caps = []
+
+    def tables(K, mode):
+        td._BH_MODE = mode
+        caps.append(K)
+        out = td._band_candidates(
+            geom, band_logp=logp.reshape(shape), band_nz=nz.reshape(shape),
+            band_sigidx=torch.zeros(shape, dtype=torch.int32, device=dev),
+            band_c=torch.ones(shape, device=dev),
+            ceil_table=torch.ones(18, dtype=torch.int64, device=dev),
+            ceil_max=1, st=0.0, log_pt=log_pt, K=K)
+        if out["cand_x"].device != dev:
+            fail("the tie block's tables left the card")
+        return {k: a[0].cpu().numpy() for k, a in out.items()}
+
+    def rejected(out):
+        ok = out["cand_valid"]
+        flat = (out["cand_x"][ok] * geom.Dl + out["cand_y"][ok]
+                - out["cand_x"][ok])
+        where = {int(c): i for i, c in enumerate(cells.cpu().tolist())}
+        return {where[int(f)] for f in flat}
+
+    first = tables(TIE["K"], "count")
+    final = _maybe_regrow(first, DetectionConfig(max_candidates=TIE["K"]),
+                          lambda cap: tables(cap, "count"))
+    sort = tables(128, "sort")
+    want = bh_reject(p, TIE["pt"])
+    if int(first["sig_count"]) < TIE["tied"]:
+        fail(f"count mode missed the tie block's overflow: sig_count "
+             f"{int(first['sig_count'])} at K={TIE['K']}")
+    if not (rejected(final) == rejected(sort) == want
+            and len(want) == TIE["tied"]):
+        fail(f"tie block: {len(rejected(final))} rejections after the "
+             f"regrow, sort mode {len(rejected(sort))}, numpy BH "
+             f"{len(want)}")
+    say(f"[13] tie block on the card ({TIE['tied']} of {TIE['n']} tested at "
+        f"p={TIE['p']}, pt={TIE['pt']}, K={TIE['K']}): count mode reported "
+        f"sig_count {int(first['sig_count'])}, regrew at capacities "
+        f"{caps[1:-1]} to {len(rejected(final))} rejections, equal to sort "
+        f"mode's and to a numpy BH's")
+    return int(first["sig_count"])
+
+
+def compare_tables(got, ref, label, suffixes=("",)):
+    """Fail unless two batches' candidate tables agree where the BH modes
+    must: counts, the valid mask, every valid slot's position, scale, q
+    and pass flags bit for bit, and the significant neighbours' q."""
+    for m in suffixes:
+        ok = ref["cand_valid" + m]
+        for k in ("n_tested", "sig_count", "cand_valid"):
+            if not torch.equal(got[k + m], ref[k + m]):
+                fail(f"{label}: {k + m} differs between the BH modes")
+        for k in ("cand_x", "cand_y", "cand_sigidx", "cand_logq",
+                  "pass_sparse", "pass_enrich", "cand_pass",
+                  "neigh_sigidx"):
+            if not torch.equal(got[k + m][ok], ref[k + m][ok]):
+                fail(f"{label}: valid {k + m} differs between the BH modes")
+        lq_g, lq_r = got["neigh_logq" + m][ok], ref["neigh_logq" + m][ok]
+        sig = lq_r < math.log(PT)
+        if not (torch.equal(lq_g < math.log(PT), sig)
+                and torch.equal(lq_g[sig], lq_r[sig])):
+            fail(f"{label}: significant neighbours differ between the BH "
+                 f"modes")
+        if int(ok.sum()) == 0:
+            fail(f"{label}: no significant candidate to compare")
+    return int(sum(ref["cand_valid" + m].sum() for m in suffixes))
+
+
+def range_top(trace_dir, name, k=6):
+    """The ``k`` kernels with the most device time among those launched
+    inside the profiler range ``name`` (by launch correlation, as
+    :func:`trace_range_time`): ``(kernel name, ms, calls)``."""
+    spans, launches, kernels = [], {}, []
+    for fname in os.listdir(trace_dir):
+        if not fname.endswith(".json"):
+            continue
+        with open(os.path.join(trace_dir, fname)) as fh:
+            trace = json.load(fh)
+        for ev in trace.get("traceEvents", []):
+            cat = ev.get("cat", "")
+            corr = ev.get("args", {}).get("correlation")
+            if cat == "user_annotation" and ev.get("name") == name:
+                spans.append((ev["ts"], ev["ts"] + ev["dur"]))
+            elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+                launches[corr] = ev["ts"]
+            elif cat == "kernel" and corr is not None:
+                kernels.append((corr, ev["name"], ev.get("dur", 0) / 1e3))
+    by_name = {}
+    for corr, kname, ms in kernels:
+        t = launches.get(corr)
+        if t is not None and any(t0 <= t <= t1 for t0, t1 in spans):
+            tot, n = by_name.get(kname, (0.0, 0))
+            by_name[kname] = (tot + ms, n + 1)
+    return sorted(((n, t, c) for n, (t, c) in by_name.items()),
+                  key=lambda r: -r[1])[:k]
+
+
+def profile_launches(fn, names):
+    """One profiled run of ``fn``: device ms of the kernels launched in
+    each named range (:func:`trace_range_time`), the top kernels of the
+    last range (:func:`range_top`), the run's kernel ms and its counts of
+    kernel launches and of copies and sets; ``None`` where the trace holds
+    no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        ranges = trace_range_time(tmp, names)
+        top = range_top(tmp, names[-1])
+        by_cat, _ = trace_device_time(tmp)
+        with open(path) as fh:
+            cats = [ev.get("cat", "") for ev in
+                    json.load(fh).get("traceEvents", [])]
+    if by_cat.get("kernel", 0.0) <= 0:
+        return None
+    return dict(ranges=ranges, top=top, kernel_ms=by_cat["kernel"],
+                kernels=cats.count("kernel"),
+                copies=cats.count("gpu_memcpy") + cats.count("gpu_memset"))
+
+
+def phase_bh_modes(dev):
+    """Phase 13: both BH modes and the batched epilogue on chr21 5 kb, the
+    1 kb slice and the two-condition diff, in one process."""
+    from mustache_tpu_torch import (
+        DetectionConfig, detect_diff_loops_coo, detect_loops_coo,
+    )
+    from mustache_tpu_torch import detect as td
+    from mustache_tpu_torch.bandnorm import bucket_rows
+    from mustache_tpu_torch.config import chunk_grid
+    from mustache_tpu_torch.diff import _diff_bands, build_diff_detector
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from mustache_tpu_torch.pipeline import local_runner, normalized_bands
+
+    t_phase = time.perf_counter()
+    default = td._BH_MODE
+    if default != "count":
+        fail(f"the default BH mode is {default!r}, not count")
+    rep = {"tie_sig_count": phase_tie_block(dev)}
+
+    (n5, _), _ = CHR21
+    (n1, d1), _ = SLICE_1KB
+    cfg5 = DetectionConfig(resolution=5000, distance_bp=2_000_000, pt=PT,
+                           st=ST)
+    cfg1 = DetectionConfig(resolution=1000, distance_bp=d1 * 1000, pt=PT,
+                           st=ST)
+    cfgd = cfg5.with_(pt2=PT2)
+    m5, m1 = workload(CHR21), workload(SLICE_1KB)
+    md = m5 + workload(CHR21_COND2)
+    _, golden5 = read_tsv(GOLDEN)
+    _, golden1 = read_tsv(GOLDEN_1KB)
+    _, goldend = read_tsv(GOLDEN_DIFF)
+    runner = local_runner(dev)
+
+    # the valid tables of each workload's first batch, both modes
+    for label, (x, y, v), cfg in (("chr21 5 kb", m5, cfg5),
+                                  ("1 kb", m1, cfg1)):
+        n = int(max(x.max(), y.max())) + 1
+        width, d_px = cfg.chunk_size, cfg.distance_px
+        shape = (bucket_rows(max(n, width)), td.band_width(width, d_px))
+        (band,), _ = normalized_bands(x, y, v, cfg, shape, n, runner,
+                                      normalize=True, exact=False)
+        starts = chunk_grid(n, width, d_px)[0]
+        det = td.build_detector(cfg, width, device=dev)
+        outs = {}
+        for mode in BH_MODES:
+            td._BH_MODE = mode
+            outs[mode] = det.fn_band(band, starts)
+        n_valid = compare_tables(outs["count"], outs["sort"], label)
+        say(f"[13] {label}: {len(starts)} blocks in one batch, {n_valid} "
+            f"valid candidates, the tables bit-identical between the modes")
+        del band, outs
+    ((b1,), (b2,)), _, n = _diff_bands(*md, cfgd, runner)
+    ddet = build_diff_detector(cfgd, cfgd.chunk_size, device=dev)
+    dstarts = chunk_grid(n, cfgd.chunk_size, cfgd.distance_px)[0]
+    outs = {}
+    for mode in BH_MODES:
+        td._BH_MODE = mode
+        outs[mode] = ddet.fn_band(b1, b2, dstarts)
+    n_valid = compare_tables(outs["count"], outs["sort"], "diff", ("1", "2"))
+    say(f"[13] diff: {len(dstarts)} blocks a condition in one batch, "
+        f"{n_valid} valid candidates, both conditions' tables bit-identical "
+        f"between the modes")
+    del outs
+    tie = make_diff_tie(ddet, b1, b2, dstarts, cfgd.resolution)
+    del b1, b2
+    torch.cuda.empty_cache()
+
+    # each workload through its entry point in both modes: rows against
+    # the golden and against the other mode, warm walls in turns, one
+    # profiled run each
+    logs = []
+    calls = {
+        "5kb": (lambda c: detect_loops_coo(*m5, c, log=logs.append), cfg5,
+                "detect"),
+        "1kb": (lambda c: detect_loops_coo(*m1, c, log=logs.append), cfg1,
+                "detect"),
+        "diff": (lambda c: detect_diff_loops_coo(*md, c, log=logs.append),
+                 cfgd, "diff"),
+    }
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    count_rows = {}
+    for label, (call, cfg, prefix) in calls.items():
+        names = tuple(f"{prefix}.{s}" for s in (
+            ("preamble", "kernel", "epilogue") if prefix == "detect"
+            else ("preamble", "fused_ladder", "planes", "epilogue")))
+        rows, walls, prof = {}, {m: [] for m in BH_MODES}, {}
+        for mode in BH_MODES:                          # warm both
+            td._BH_MODE = mode
+            fl.LAUNCHES = 0
+            rows[mode] = call(cfg)
+            plan = dict(kv.split("=", 1) for kv in logs[-1].split()
+                        if kv.split("=")[0] in ("blocks", "batch"))
+            batches = -(-int(plan["blocks"]) // int(plan["batch"]))
+            if fl.LAUNCHES != batches:
+                fail(f"{label} {mode}: {fl.LAUNCHES} fused launches for "
+                     f"{batches} batches ({logs[-1]})")
+        if rows["count"] != rows["sort"]:
+            fail(f"{label}: rows differ between the BH modes")
+        count_rows[label] = rows["count"]
+        if prefix == "diff":
+            compare_diff_to_golden(diff_tsv_rows(rows["count"], "chr21",
+                                                 cfg.resolution), goldend,
+                                   tie)
+        else:
+            chrom, golden = (("chr21", golden5) if label == "5kb"
+                             else ("chr1", golden1))
+            compare_to_golden(loops_tsv_rows(rows["count"], chrom,
+                                             cfg.resolution), golden,
+                              tag="13")
+        for _ in range(3):                             # in turns
+            for mode in BH_MODES:
+                td._BH_MODE = mode
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = call(cfg)
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+                if again != rows[mode]:
+                    fail(f"{label} {mode}: a warm rerun gave other rows")
+        for mode in BH_MODES:
+            td._BH_MODE = mode
+            prof[mode] = profile_launches(lambda: call(cfg), names)
+        for mode in BH_MODES:
+            pm = prof[mode]
+            med = sorted(walls[mode])[1]
+            rep[f"{label}_{mode}"] = dict(
+                warm_s=walls[mode], warm_median_s=med, profile=pm)
+            if pm is None:
+                dev_note = "device time not measured (no device events)"
+            else:
+                dev_note = (
+                    f"{pm['kernel_ms']:.2f} ms of kernels, "
+                    + ", ".join(f"{k} {v:.2f} ms"
+                                for k, v in pm["ranges"].items())
+                    + f"; {pm['kernels']} kernel launches and "
+                    f"{pm['copies']} copies/sets per chromosome")
+            say(f"[13] {label} BH {mode}: {len(rows[mode])} rows (equal "
+                f"to the golden and to the other mode's); warm "
+                f"{' '.join(f'{w:.4f}' for w in walls[mode])} s (median "
+                f"{med:.4f}); {dev_note}; {smi}")
+            for kname, kms, n in (pm or {}).get("top", []):
+                say(f"[13]   {names[-1]}: {kms:8.3f} ms {n:4d}x "
+                    f"{kname[:90]}")
+
+    # chr21 5 kb in batches of 2 (3 batches, pipelined) and of 1
+    td._BH_MODE = default
+    for bb in (2, 1):
+        cfg = cfg5.with_(block_batch=bb)
+        logs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = detect_loops_coo(*m5, cfg, log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if f"batch={bb} " not in logs[0]:
+            fail(f"block_batch={bb} did not run in batches of {bb}: "
+                 f"{logs[0]}")
+        if got != count_rows["5kb"]:
+            fail(f"chr21 5 kb in batches of {bb} gave other rows")
+        rep[f"5kb_batches_of_{bb}_s"] = wall
+        say(f"[13] chr21 5 kb in batches of {bb} (pipelined): the rows of "
+            f"one batch; wall {wall:.4f} s; {logs[0]}")
+    say(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return rep
+
+
 def build_all():
     """Build the fused kernel (nvcc), the native band fill, host normalize
     and .hic decoder (g++) at the same time (``warmup.warm``), then load
@@ -2834,10 +3180,12 @@ def main():
         sharding = phase_sharding(dev, workdir, loops4, warm4, rows7)
         cool = phase_cool(dev, workdir, files)
         oct5 = phase_oct5(dev, workdir)
+    bh = phase_bh_modes(dev)
     say(json.dumps({"phase5_5kb": files, "phase6_1kb": slice_1kb,
                     "phase7_diff": diff, "phase8_ladder": ladder,
                     "phase9_inter": inter, "phase10_sharding": sharding,
-                    "phase11_cool": cool, "phase12_oct5": oct5}))
+                    "phase11_cool": cool, "phase12_oct5": oct5,
+                    "phase13_bh": bh}))
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")

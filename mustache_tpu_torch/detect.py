@@ -21,16 +21,22 @@ export on the device, packs each batch into one buffer for one D2H, and
 finishes each block on the host (clustering and emission, copied from
 ``mustache_tpu/detect.py:981-1060``).
 
-BH runs in the JAX package's exact "sort" mode only. Its default "count"
-mode exists to avoid a full sort on the TPU and misses overflow on tied
-p-values (ROADMAP Queue 3 item 1); the port's parity tests hold the JAX
-side in "sort" mode.
+BH has the JAX package's two modes (``_BH_MODE``, read once from
+``MUSTACHE_TPU_BH``): ``"count"``, the default, marks the superset of the
+significant set in one O(N·Dl) pass, compacts it into the K-slot table
+and sorts only the table; ``"sort"`` sorts all N·Dl keys of a block. Both
+give the same sig_count, valid table and loop rows. Count mode decides
+overflow exactly, from a histogram of each tested pixel's least
+admitting rank, where the JAX package's one-pass test misses overflow
+on tied p-values (ROADMAP Queue 3 item 2). The epilogue runs once per
+batch on ``[B, N, Dl]`` band state (the JAX package vmaps it).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -46,6 +52,11 @@ from mustache_tpu_torch.scalespace import (
 SENTINEL = 2.0        # fills the masked wedges; participates in the blurs
 LOG2 = math.log(2.0)  # log-space image of the "untested" marker q=2
 _INF = float("inf")
+
+# BH strategy of _band_candidates (mustache_tpu/detect.py:55): "count"
+# (default: count pass + compaction of the marked set, no full-array
+# sort) or "sort" (one stable sort of all N*Dl keys). Identical loop rows.
+_BH_MODE = os.environ.get("MUSTACHE_TPU_BH", "count")
 
 
 def band_width(n: int, d_px: int) -> int:
@@ -141,33 +152,144 @@ def _bh_lookup(sp, qs, vals):
 def _box_counts_band(cs_flat, x, y, s, smax: int, N: int, Dl: int):
     """Window sums of the support over [x-s, x+s+1) x [y-s, y+s+1) with
     numpy slice semantics (negative start => empty, overruns clamp;
-    mustache.py:800-810), from the band's per-column inclusive prefix
-    ``cs[i, d] = #{i' <= i : nz[i', i'+d]}``: the dense box decomposes by
-    diagonal into at most 4*smax+1 column ranges."""
-    rel = torch.arange(-2 * smax, 2 * smax + 1, device=x.device)[None, :]
-    x_, y_, s_ = x[:, None], y[:, None], s[:, None]
-    d = (y_ - x_) + rel                                   # [K, L]
+    mustache.py:800-810) for candidates ``x``, ``y``, ``s`` ``[B, K]``,
+    from each block's per-column inclusive prefix ``cs[b, i, d] = #{i' <=
+    i : nz[b, i', i'+d]}`` flattened to ``cs_flat`` ``[B, N*Dl]``: the
+    dense box decomposes by diagonal into at most 4*smax+1 column
+    ranges."""
+    B = x.shape[0]
+    rel = torch.arange(-2 * smax, 2 * smax + 1, device=x.device)
+    x_, y_, s_ = x[..., None], y[..., None], s[..., None]
+    d = (y_ - x_) + rel                                   # [B, K, L]
     lo = torch.maximum(x_ - s_, y_ - s_ - d)
     hi1 = torch.minimum(x_ + s_, y_ + s_ - d) + 1         # exclusive
     lo_c = lo.clamp(0, N)
     hi_c = hi1.clamp(0, N)
     dc = d.clamp(0, Dl - 1)
     valid = (d >= 0) & (d < Dl) & (hi_c > lo_c) & (rel.abs() <= 2 * s_)
-    hi_t = cs_flat[(hi_c - 1).clamp(min=0) * Dl + dc]
-    lo_t = cs_flat[(lo_c - 1).clamp(min=0) * Dl + dc]
-    cnt = torch.where(hi_c > 0, hi_t, 0) - torch.where(lo_c > 0, lo_t, 0)
-    total = torch.where(valid, cnt, 0).sum(1)
+
+    def prefix(row):
+        flat = (row.clamp(min=0) * Dl + dc).reshape(B, -1)
+        return cs_flat.gather(1, flat).reshape(d.shape)
+
+    cnt = (torch.where(hi_c > 0, prefix(hi_c - 1), 0)
+           - torch.where(lo_c > 0, prefix(lo_c - 1), 0))
+    total = torch.where(valid, cnt, 0).sum(-1)
     empty = ((x - s) < 0) | ((y - s) < 0)
     return torch.where(empty, 0, total)
+
+
+def _bh_sort(found, logp, n_tested, log_pt: float, K: int):
+    """Sort-mode BH of a batch of blocks' flat keys ``[B, M]``: one stable
+    sort of every key (+inf = untested) serves BH and selection, the K
+    smallest-p pixels (row-major on ties, like the reference argsort)
+    with their q; BH q is non-decreasing along this order, so they hold
+    every q < pt pixel whenever sig_count <= K (the regrow contract).
+    Returns ``(cand_logq [B, K], flat index [B, K], sig_count [B],
+    lookup)``, ``lookup`` mapping neighbour log p to log q."""
+    sp, sidx = torch.sort(torch.where(found, logp, _INF), dim=-1,
+                          stable=True)
+    qs = _logq_from_sorted(sp, n_tested[:, None])
+    sig_count = (qs < log_pt).sum(-1, dtype=torch.int32)
+    return qs[:, :K], sidx[:, :K], sig_count, \
+        lambda vals: _bh_lookup(sp, qs, vals)
+
+
+def _row_cumsum(a: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sums along the rows of ``a`` ``[B, L]``,
+    exactly, as ONE scan of the flattened rows less each row's start: on
+    the card a 1-D scan is one device-wide scan, while a scan along the
+    last dim of a few long rows gives each row one thread block."""
+    B, L = a.shape
+    flat = torch.cumsum(a.reshape(-1), 0, dtype=torch.int32).reshape(B, L)
+    return flat - torch.cat([flat.new_zeros(1), flat[:-1, -1]])[:, None]
+
+
+def _bh_cutoff(found, logp, n_tested, log_pt: float):
+    """The BH step-up cutoff of each row of ``[B, M]`` keys, exactly: ``k*
+    = max{k : F(k) >= k}`` with ``F(k) = #{i : log p_i < log pt + log k -
+    log n}``. One pass takes each tested pixel's least admitting rank ``r
+    = floor(p n / pt) + 1`` in float64, one step low where the compute
+    dtype's rounding could admit it at the rank below (a spurious
+    overflow costs a regrow; a missed one would drop loops); a histogram
+    of r and its prefix sum give F. Ranks beyond n never admit: their
+    pixels go to dump bins past F's range, spread so that their atomic
+    adds do not pile onto one address."""
+    B, M = logp.shape
+    dev = logp.device
+    eps = torch.finfo(logp.dtype).eps
+    log_n = torch.log(n_tested.to(torch.float64))[:, None]
+    lp = torch.where(found, logp, 0.0).to(torch.float64)
+    slack = 64 * eps * (lp.abs() + log_n.abs() + abs(log_pt) + 1.0)
+    r = torch.floor(torch.exp(lp + log_n - log_pt - slack).clamp(max=M + 1))
+    r = r + 1
+    keep = found & (r <= n_tested[:, None])
+    dump = (M + 2 + (torch.arange(M, device=dev) & 4095)).to(r.dtype)
+    hist = torch.zeros((B, M + 2 + 4096), dtype=torch.int32, device=dev)
+    hist.scatter_add_(1, torch.where(keep, r, dump).long(),
+                      torch.ones((), dtype=torch.int32,
+                                 device=dev).expand(B, M))
+    F = _row_cumsum(hist[:, :M + 2])                       # F[k], k <= M+1
+    k = torch.arange(M + 2, dtype=torch.int32, device=dev)
+    return torch.where(F >= k, k, 0).amax(-1)
+
+
+def _bh_count(found, logp, n_tested, log_pt: float, K: int):
+    """Count-mode BH of a batch of blocks' flat keys ``[B, M]``
+    (``mustache_tpu/detect.py:519-592``), returning what :func:`_bh_sort`
+    returns without a sort of all M keys.
+
+    One pass marks ``log p < log pt + log(K+1) - log n`` (the JAX mark:
+    F(K+1) pixels, a prefix of the p-sorted order). When the cutoff k* is
+    at most K that prefix holds every significant pixel and every suffix
+    term BH can take for one (terms at ranks beyond k* are >= log pt), so
+    the marked set, compacted into the K-slot table in row-major order (a
+    prefix sum of the marks, searched for each slot) and stable-sorted,
+    gives each significant pixel the q of the full sort, bit for bit.
+    Overflow is decided exactly (:func:`_bh_cutoff`; also when more than
+    K are marked, as then k* > K): sig_count is then ``max(k*, K+1)``, so
+    the regrow sizes its rerun in one step; else the table's own count of
+    q < pt. A tested neighbour beyond the table looks up q = 1 (log 0),
+    which never wins the host argmin against the component's significant
+    center."""
+    B, M = logp.shape
+    dev, dt = logp.device, logp.dtype
+    cthr = (torch.full((), log_pt, dtype=dt, device=dev) + math.log(K + 1)
+            - torch.log(n_tested.to(dt))[:, None])
+    # stream compaction: slot j holds the (j+1)-th mark in flat order, the
+    # first index where the marks' running count reaches j+1 (M = empty)
+    count = _row_cumsum(found & (logp < cthr))
+    marked = count[:, -1]                                  # F(K+1)
+    want = torch.arange(1, K + 1, dtype=torch.int32, device=dev)
+    table = torch.searchsorted(count, want.expand(B, K).contiguous())
+    real = table < M
+    vals = torch.where(real, logp.gather(1, table.clamp(max=M - 1)), _INF)
+    sp, order = torch.sort(vals, dim=-1, stable=True)
+    flat_idx = torch.where(real, table, 0).gather(1, order)
+    qs = _logq_from_sorted(sp, n_tested[:, None])
+    kstar = _bh_cutoff(found, logp, n_tested, log_pt)
+    overflow = (kstar > K) | (marked > K)
+    sig_count = torch.where(overflow, kstar.clamp(min=K + 1),
+                            (qs < log_pt).sum(-1, dtype=torch.int32))
+    in_table = marked.clamp(max=K)[:, None]
+
+    def lookup(nb_vals):
+        flat = nb_vals.reshape(B, -1).contiguous()
+        pos = torch.searchsorted(sp, flat)
+        q = qs.gather(1, pos.clamp(max=K - 1))
+        return torch.where(pos < in_table, q, 0.0).reshape(nb_vals.shape)
+
+    return qs, flat_idx, sig_count, lookup
 
 
 def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
                      band_c, ceil_table, ceil_max: int, st: float,
                      log_pt: float, K: int, extras=()):
-    """Fixed-capacity candidate table from band-space detection state: BH
-    FDR (exact sort mode), selection, sparsity/enrichment filters and the
-    exported 3x3 neighbourhoods for host clustering
-    (mustache.py:774-841).
+    """Fixed-capacity candidate tables of a batch of blocks from their
+    band-space detection state ``[B, N, Dl]``: BH FDR (``_BH_MODE``),
+    selection, sparsity/enrichment filters and the exported 3x3
+    neighbourhoods for host clustering (mustache.py:774-841). Every
+    output has a leading B.
 
     ``extras``: tuples ``(name, band_arr, inside_fill, outside_fill)``,
     each exported as ``neigh_<name>`` over the candidate neighbourhoods,
@@ -176,28 +298,31 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
     679-683``; the differential path carries its pair p and both maps'
     best responses this way)."""
     N, Dl = geom.N, geom.Dl
+    B, M = band_logp.shape[0], N * Dl
+    bh = {"count": _bh_count, "sort": _bh_sort}.get(_BH_MODE)
+    if bh is None:
+        raise ValueError(f"MUSTACHE_TPU_BH must be count or sort, got "
+                         f"{_BH_MODE!r}")
     found = band_nz & (band_logp < _INF)
-    n_tested = found.sum(dtype=torch.int32)
-    kf = torch.where(found, band_logp, _INF).reshape(-1)  # +inf = untested
-    # one stable sort serves BH and selection: the K smallest-p pixels
-    # (row-major on ties, like the reference argsort) with their q; BH q is
-    # non-decreasing along this order, so they hold every q < pt pixel
-    # whenever sig_count <= K (the regrow contract)
-    sp, sidx = torch.sort(kf, stable=True)
-    qs = _logq_from_sorted(sp, n_tested)
-    sig_count = (qs < log_pt).sum(dtype=torch.int32)
-    cand_logq = qs[:K]
-    flat_idx = sidx[:K]
+    n_tested = found.sum(dim=(-2, -1), dtype=torch.int32)
+    cand_logq, flat_idx, sig_count, lookup = bh(
+        found.reshape(B, M), band_logp.reshape(B, M), n_tested, log_pt, K)
     cand_valid = cand_logq < log_pt
     cx = flat_idx // Dl
     cd = flat_idx % Dl
     cy = cx + cd
 
+    def take(band, idx):
+        """``band`` ``[B, N, Dl]`` at flat band indices ``idx``."""
+        return band.reshape(B, M).gather(1, idx.reshape(B, -1)).reshape(
+            idx.shape)
+
     band_sigidx = torch.where(band_nz, band_sigidx, -1)
-    cand_sigidx = band_sigidx.reshape(-1)[flat_idx]
+    cand_sigidx = take(band_sigidx, flat_idx)
 
     # sparsity filter via per-column prefix sums of the band support
-    cs_flat = torch.cumsum(band_nz.to(torch.int32), 0).reshape(-1)
+    cs_flat = torch.cumsum(band_nz.to(torch.int32), -2,
+                           dtype=torch.int32).reshape(B, M)
     s1 = torch.where(cand_sigidx >= 0,
                      ceil_table[cand_sigidx.clamp(min=0).long()], 1).long()
     dt = band_logp.dtype
@@ -211,10 +336,10 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
     # enrichment: candidate > 2 * nonzero-mean of its diagonal on the
     # sentinel-filled map (mustache.py:816-828); band column d IS diagonal d
     occupied = geom.band_validl & (band_c != 0)
-    dmeans = (torch.where(occupied, band_c, 0.0).sum(0)
-              / occupied.sum(0).to(band_c.dtype))       # NaN when empty
-    cand_mean = dmeans[cd.clamp(0, Dl - 1)]
-    cand_c = band_c.reshape(-1)[flat_idx]
+    dmeans = (torch.where(occupied, band_c, 0.0).sum(-2)
+              / occupied.sum(-2).to(band_c.dtype))      # NaN when empty
+    cand_mean = dmeans.gather(1, cd.clamp(0, Dl - 1))
+    cand_c = take(band_c, flat_idx)
     pass_enrich = cand_c > 2 * cand_mean                # NaN mean => False
     cand_pass = cand_valid & pass_sparse & pass_enrich
 
@@ -222,23 +347,21 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
     # (x+dx, d+dy-dx). Tested neighbours get their BH q, untested support
     # cells the q=2 marker, in-matrix cells beyond the band q=1 (log 0),
     # cells outside the matrix +inf (cannot win the component argmin)
-    Kc = flat_idx.shape[0]
+    Kc = flat_idx.shape[1]
     offs = torch.arange(-1, 2, device=cx.device)
-    nx = (cx[:, None, None] + offs[None, :, None]).expand(Kc, 3, 3)
-    ny = (cy[:, None, None] + offs[None, None, :]).expand(Kc, 3, 3)
+    nx = (cx[..., None, None] + offs[:, None]).expand(B, Kc, 3, 3)
+    ny = (cy[..., None, None] + offs).expand(B, Kc, 3, 3)
     nd = ny - nx
     inside = (nx >= 0) & (nx < N) & (ny >= 0) & (ny < N)
     in_band = inside & (nd >= 0) & (nd < Dl)
-    nxc = nx.clamp(0, N - 1)
-    ndc = nd.clamp(0, Dl - 1)
-    nb_found = found[nxc, ndc]
-    nb_val = torch.where(nb_found, band_logp[nxc, ndc], _INF)
-    nb_q = _bh_lookup(sp, qs, nb_val)
+    nflat = nx.clamp(0, N - 1) * Dl + nd.clamp(0, Dl - 1)
+    nb_found = take(found, nflat)
+    nb_q = lookup(torch.where(nb_found, take(band_logp, nflat), _INF))
     neigh_logq = torch.where(
         in_band & nb_found, nb_q,
-        torch.where(in_band & band_nz[nxc, ndc], LOG2,
+        torch.where(in_band & take(band_nz, nflat), LOG2,
                     torch.where(inside, 0.0, _INF)))
-    neigh_sigidx = torch.where(in_band, band_sigidx[nxc, ndc], -1)
+    neigh_sigidx = torch.where(in_band, take(band_sigidx, nflat), -1)
 
     i32 = torch.int32
     out = {
@@ -257,7 +380,7 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
     }
     for name, arr, inside_fill, outside_fill in extras:
         out["neigh_" + name] = torch.where(
-            in_band, arr[nxc, ndc],
+            in_band, take(arr, nflat),
             torch.where(inside, inside_fill, outside_fill).to(arr.dtype))
     return out
 
@@ -276,10 +399,10 @@ def band_rows(win: torch.Tensor, base: int, row0: int, rows: int,
 
 
 def _slice_support(geom: _BandGeom, band_slice: torch.Tensor, d_px: int):
-    """Support mask, its count and the sentinel-filled map of one block in
-    band space, from its normalized band slice ``[N, >= Dl]`` (or of a
-    batch ``[B, N, >= Dl]``, counts ``[B]``): the shear of
-    :func:`_preamble`'s dense outputs, without the dense block."""
+    """Support masks, their counts ``[B]`` and the sentinel-filled maps of
+    a batch of blocks in band space, from their normalized band slices
+    ``[B, N, >= Dl]``: the shear of :func:`_preamble`'s dense outputs,
+    without the dense blocks."""
     bs = torch.where(geom.band_validl, band_slice[..., :geom.Dl], 0.0)
     nzb = geom.band_validl & (bs != 0) & (geom.band_dl >= 4)
     band_c = torch.where(geom.band_dl <= 4, SENTINEL, bs)
@@ -289,32 +412,55 @@ def _slice_support(geom: _BandGeom, band_slice: torch.Tensor, d_px: int):
 
 
 def _kernel_best(band_state, nzb, nz_count, *, scrub_nan: bool = False):
-    """``(best_v, best_logp, best_sigidx)`` of one block from the kernel's
-    band state ``(band_v, band_sig, locs, sums)``: log p from the best
-    response and the per-plane exponential fit (detections have L > 0, so
-    |L| == best_v and logp = -(v - loc)/scale). ``scrub_nan`` maps a NaN
-    log p to 0 (p = 1), as the differential reference does
-    (diff_mustache.py:386-387)."""
+    """``(best_v, best_logp, best_sigidx)`` ``[B, N, Dl]`` of a batch of
+    blocks from the kernel's band state ``(band_v, band_sig, locs,
+    sums)`` (partials ``[B, P]``): log p from the best response and the
+    per-plane exponential fit (detections have L > 0, so |L| == best_v
+    and logp = -(v - loc)/scale). ``scrub_nan`` maps a NaN log p to 0 (p
+    = 1), as the differential reference does (diff_mustache.py:386-387)."""
     band_v, band_sig, locs, sums = band_state
     inv_count = 1.0 / nz_count.clamp(min=1).to(band_v.dtype)
-    scales = sums * inv_count - locs
-    sig_c = band_sig.clamp(min=0).long()
-    logp = -(band_v - locs[sig_c]) / scales[sig_c]
+    scales = sums * inv_count[:, None] - locs
+    sig_c = band_sig.clamp(min=0).long().reshape(band_sig.shape[0], -1)
+
+    def per_plane(a):
+        return a.gather(1, sig_c).reshape(band_sig.shape)
+
+    logp = -(band_v - per_plane(locs)) / per_plane(scales)
     if scrub_nan:
         logp = torch.where(torch.isnan(logp), 0.0, logp)
     best_logp = torch.where(nzb & (band_sig >= 0), logp, _INF)
     return band_v, best_logp, torch.where(nzb, band_sig, -1)
 
 
+def host_ints(vals, device, dtype=torch.int64) -> torch.Tensor:
+    """A short host list of ints on ``device``. On the card it goes up
+    from pinned memory without a wait: a plain upload from a host list
+    waits for everything queued before it, which would keep the host
+    from queueing the next batch while the device runs this one."""
+    t = torch.tensor(vals, dtype=dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def ceil_tensor(det_ceil, device) -> torch.Tensor:
+    """The ladder's ``det_ceil`` (box half-width per detection plane) as
+    an int64 tensor on ``device``, made once per detector: an upload from
+    a host list waits for the device's queue."""
+    return torch.as_tensor(det_ceil, dtype=torch.int64, device=device)
+
+
 def _epilogue(geom: _BandGeom, best_logp, best_sigidx, nzb, nz_count,
-              band_c, *, det_ceil, K: int, st: float, log_pt: float):
-    """One block's candidate table from its band-space best state."""
-    ceil_table = torch.as_tensor(det_ceil, dtype=torch.int64,
-                                 device=best_logp.device)
+              band_c, *, ceil_table, ceil_max: int, K: int, st: float,
+              log_pt: float):
+    """A batch's candidate tables from its band-space best state
+    ``[B, N, Dl]`` (``ceil_table``: :func:`ceil_tensor`, ``ceil_max`` its
+    largest entry)."""
     out = _band_candidates(
         geom, band_logp=best_logp, band_sigidx=best_sigidx, band_nz=nzb,
-        band_c=band_c, ceil_table=ceil_table, ceil_max=int(max(det_ceil)),
-        st=st, log_pt=log_pt, K=K)
+        band_c=band_c, ceil_table=ceil_table, ceil_max=ceil_max, st=st,
+        log_pt=log_pt, K=K)
     out["nz_count"] = nz_count
     return out
 
@@ -324,13 +470,18 @@ def _detect_one(band_state, band_slice: torch.Tensor, *, det_ceil,
     """One block's candidate table from the kernel's band state
     ``(band_v, band_sig, locs, sums)`` and its normalized band slice
     ``[N, >= Dl]`` (the band-state + band-slice branch of the JAX
-    ``_detect_one``). The support mask and sentinel map come from the
-    slice, so the dense block is never read here."""
-    geom = _BandGeom(band_slice.shape[0], d_px, band_slice.device)
-    nzb, nz_count, band_c = _slice_support(geom, band_slice, d_px)
-    _, best_logp, best_sigidx = _kernel_best(band_state, nzb, nz_count)
-    return _epilogue(geom, best_logp, best_sigidx, nzb, nz_count, band_c,
-                     det_ceil=det_ceil, K=K, st=st, log_pt=log_pt)
+    ``_detect_one``): the batched epilogue on a batch of one. The support
+    mask and sentinel map come from the slice, so the dense block is never
+    read here."""
+    dev = band_slice.device
+    geom = _BandGeom(band_slice.shape[0], d_px, dev)
+    nzb, nz_count, band_c = _slice_support(geom, band_slice[None], d_px)
+    _, best_logp, best_sigidx = _kernel_best(
+        tuple(a[None] for a in band_state), nzb, nz_count)
+    out = _epilogue(geom, best_logp, best_sigidx, nzb, nz_count, band_c,
+                    ceil_table=ceil_tensor(det_ceil, dev),
+                    ceil_max=int(max(det_ceil)), K=K, st=st, log_pt=log_pt)
+    return {k: a[0] for k, a in out.items()}
 
 
 def out_shapes(K: int, dtype=np.float32) -> dict:
@@ -435,6 +586,7 @@ class BlockDetector:
     route: str               # "kernel" or "ladder" (resolve_route)
     taps: torch.Tensor       # [S, 2R+1] ladder taps, in the compute dtype
     radii: torch.Tensor      # [S] int32 radius of each sigma, same device
+    ceil_table: torch.Tensor  # ceil_tensor(spec.det_ceil), same device
     out_spec: dict           # _out_spec layout for unpack_block
 
     def route_state(self, cs: torch.Tensor, nz: torch.Tensor,
@@ -444,16 +596,15 @@ class BlockDetector:
         ``[B, n, n]`` (dense support ``nz``, band slices ``slices``) by
         the detector's route: on the kernel route the kernel's band state
         ``(band_v, band_sig, locs, sums)``, on the ladder route ``(best_v,
-        best_logp, best_sigidx)``, each batched; :meth:`block_best` reads
-        one block's best state from either. A slot with ``valid_h[b] ==
+        best_logp, best_sigidx)``, each batched; :meth:`best_state` reads
+        the batch's best state from either. A slot with ``valid_h[b] ==
         0`` is a pad: neither route computes it, and its state is
         empty."""
         spec, n = self.spec, self.n
         d_px = self.cfg.distance_px
         geom = _BandGeom(n, d_px, cs.device)
         if self.route == "kernel":
-            valid = torch.as_tensor(valid_h, dtype=torch.int32,
-                                    device=cs.device)
+            valid = host_ints(valid_h, cs.device, torch.int32)
             return fused_ladder.fused_ladder_nms_batched(
                 cs, nz.to(torch.float32), self.taps, R=spec.radius,
                 n_octaves=len(spec.octave_values),
@@ -470,7 +621,7 @@ class BlockDetector:
                 torch.full((B, n, geom.Dl), -1, dtype=torch.int32,
                            device=dev))
         if real:
-            idx = torch.as_tensor(real, device=dev)
+            idx = host_ints(real, dev)
             nzb, counts, _ = _slice_support(geom, slices[idx], d_px)
             got = ladder_best(cs[idx], nzb, counts, self.taps, spec, geom,
                               scrub_nan=scrub_nan)
@@ -478,15 +629,14 @@ class BlockDetector:
                 full[idx] = part
         return best
 
-    def block_best(self, state, b: int, support, *,
-                   scrub_nan: bool = False):
-        """Block ``b``'s ``(best_v, best_logp, best_sigidx)`` from
-        :meth:`route_state`'s ``state`` and the block's band ``support``
+    def best_state(self, state, support, *, scrub_nan: bool = False):
+        """The batch's ``(best_v, best_logp, best_sigidx)`` from
+        :meth:`route_state`'s ``state`` and the blocks' band ``support``
         ``(nzb, nz_count, band_c)``."""
         if self.route == "kernel":
-            return _kernel_best(tuple(a[b] for a in state), support[0],
-                                support[1], scrub_nan=scrub_nan)
-        return tuple(a[b] for a in state)
+            return _kernel_best(state, support[0], support[1],
+                                scrub_nan=scrub_nan)
+        return state
 
     def _detect(self, slices: torch.Tensor, valid_h) -> dict:
         """Batch detection from the blocks' normalized band slices ``[B,
@@ -500,24 +650,22 @@ class BlockDetector:
         with rf("detect." + self.route):
             state = self.route_state(cs, nz, slices, valid_h)
         del cs, nz
-        return self._epilogues(slices, state, len(valid_h))
+        return self._epilogues(slices, state)
 
-    def _epilogues(self, slices: torch.Tensor, state, B: int) -> dict:
+    def _epilogues(self, slices: torch.Tensor, state) -> dict:
         """The batch's candidate tables from its band slices and its
-        :meth:`route_state`-format state, block by block."""
+        :meth:`route_state`-format state, all blocks at once."""
         d_px = self.cfg.distance_px
         geom = _BandGeom(self.n, d_px, slices.device)
         st, log_pt = thresholds(self.cfg)
-        outs = []
         with torch.profiler.record_function("detect.epilogue"):
-            for b in range(B):
-                support = _slice_support(geom, slices[b], d_px)
-                _, best_logp, best_sig = self.block_best(state, b, support)
-                outs.append(_epilogue(
-                    geom, best_logp, best_sig, *support,
-                    det_ceil=self.spec.det_ceil, K=self.K, st=st,
-                    log_pt=log_pt))
-            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            support = _slice_support(geom, slices, d_px)
+            _, best_logp, best_sig = self.best_state(state, support)
+            return _epilogue(
+                geom, best_logp, best_sig, *support,
+                ceil_table=self.ceil_table,
+                ceil_max=int(max(self.spec.det_ceil)), K=self.K, st=st,
+                log_pt=log_pt)
 
     def row_state(self, win: torch.Tensor, base: int, t_lo: int,
                   t_hi: int) -> tuple:
@@ -570,27 +718,21 @@ class BlockDetector:
         it differs from the unsplit scan's per-plane log p only by the
         order of the partial sums."""
         slices = torch.cat([p[0] for p in parts], dim=1)
-        B = slices.shape[0]
         P = len(self.spec.octave_values) * self.spec.planes_per_octave
         best_v = torch.cat([p[1] for p in parts], dim=1)
         best_sig = torch.cat([p[2] for p in parts], dim=1)
         if self.route == "kernel":
             locs, sums = fused_ladder.reduce_parts(
                 torch.cat([p[3] for p in parts], dim=1), P)
-            return self._epilogues(slices, (best_v, best_sig, locs, sums), B)
+            return self._epilogues(slices, (best_v, best_sig, locs, sums))
         locs = torch.stack([p[3] for p in parts]).amin(dim=0)
         sums = parts[0][4]
         for p in parts[1:]:
             sums = sums + p[4]
         geom = _BandGeom(self.n, self.cfg.distance_px, slices.device)
-        best = []
-        for b in range(B):
-            nzb, count, _ = _slice_support(geom, slices[b],
-                                           self.cfg.distance_px)
-            best.append(_kernel_best((best_v[b], best_sig[b], locs[b],
-                                      sums[b]), nzb, count))
-        state = tuple(torch.stack(a) for a in zip(*best))
-        return self._epilogues(slices, state, B)
+        nzb, count, _ = _slice_support(geom, slices, self.cfg.distance_px)
+        state = _kernel_best((best_v, best_sig, locs, sums), nzb, count)
+        return self._epilogues(slices, state)
 
     def fn_band(self, band: torch.Tensor, starts) -> dict:
         """Batch detection from the normalized chromosome band
@@ -638,6 +780,7 @@ def build_detector(cfg: DetectionConfig, n: int, *, device,
     return BlockDetector(cfg=cfg, spec=spec, n=n, K=K, route=route,
                          taps=ladder_tensor(spec.kernels, device, dtype),
                          radii=radii_tensor(spec.blur_sigmas, device),
+                         ceil_table=ceil_tensor(spec.det_ceil, device),
                          out_spec=_out_spec(out_shapes(K, dtype)))
 
 

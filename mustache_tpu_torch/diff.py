@@ -48,8 +48,8 @@ from mustache_tpu_torch.config import (
 from mustache_tpu_torch.detect import (
     SENTINEL, BlockDetector, _BandGeom, _band_candidates, _cluster_components,
     _out_spec, _pack_batched, _preamble, _slice_support, band_of,
-    band_width, build_detector, dense_from_band, out_shapes as single_out_shapes,
-    resolve_route, thresholds, unpack_block,
+    band_width, build_detector, dense_from_band, host_ints,
+    out_shapes as single_out_shapes, resolve_route, thresholds, unpack_block,
 )
 from mustache_tpu_torch.kernels.fused_ladder import _symmetric_pad
 from mustache_tpu_torch.ladder import band_blur
@@ -90,7 +90,7 @@ def diff_p_band(cs1, cs2, nz1, nz2, taps_sel, *, R: int, Dl: int, valid):
     real = [b for b in range(B) if valid[b]]
     if not real:
         return out
-    idx = torch.as_tensor(real, device=cs1.device)
+    idx = host_ints(real, cs1.device)
     nzd = nz1[idx] & nz2[idx]
     cds = torch.where(nzd, cs1[idx] - cs2[idx], 0.0)
     gb = band_blur(_symmetric_pad(cds, R), taps_sel, N, Dl)
@@ -110,38 +110,40 @@ def diff_p_band(cs1, cs2, nz1, nz2, taps_sel, *, R: int, Dl: int, valid):
     return out
 
 
-def _diff_detect_one(bests, supports, diff_p, *, det_ceil,
+def _diff_detect_one(best, support, diff_p, *, ceil_table, ceil_max: int,
                      planes_per_octave: int, d_px: int, K: int, st: float,
                      log_pt: float):
-    """One block's two candidate tables from each condition's detection
-    state ``(best_v, best_logp, best_sigidx)`` (either route, NaN log p
-    already scrubbed to 0), each condition's band support ``(nzb,
-    nz_count, band_c)`` and the block's differential p ``[n_oct, N, Dl]``
-    (the JAX ``_diff_detect_one`` from its states on). Keys carry a
-    ``1``/``2`` suffix, plus ``nz1_count`` and ``nz2_count``."""
-    N = diff_p.shape[-2]
-    geom = _BandGeom(N, d_px, diff_p.device)
-    nzb = {m: supports[m - 1][0] for m in (1, 2)}
-    out = {"nz1_count": supports[0][1], "nz2_count": supports[1][1]}
-    ceil_table = torch.as_tensor(det_ceil, dtype=torch.int64,
-                                 device=diff_p.device)
+    """A batch's two candidate tables per block (the JAX
+    ``_diff_detect_one`` from its states on, vmapped over the batch), from
+    the stacked ``[2B]`` detection state ``best`` ``(best_v, best_logp,
+    best_sigidx)`` (either route, NaN log p already scrubbed to 0; slots
+    ``0..B-1`` condition 1, ``B..2B-1`` condition 2), their band
+    ``support`` ``(nzb, nz_count, band_c)`` and each block's differential
+    p ``[B, n_oct, N, Dl]``. Both conditions' tables come from one
+    ``[2B]`` call of ``_band_candidates``; each condition exports its own
+    pair p and both maps' best responses. Keys carry a ``1``/``2``
+    suffix, plus ``nz1_count`` and ``nz2_count``."""
+    B = diff_p.shape[0]
+    geom = _BandGeom(diff_p.shape[-2], d_px, diff_p.device)
+    best_v, best_logp, best_sig = best
+    nzb, nz_count, band_c = support
     # best DoG responses on each map's own support, 1 elsewhere
     # (diff_mustache.py:446-449), exported on both maps' neighbourhoods
-    band_v = {m: torch.where(nzb[m], bests[m - 1][0], 1.0) for m in (1, 2)}
-    for m in (1, 2):
-        _, best_logp, best_sig = bests[m - 1]
-        # differential p of the detection's octave, 2 where undetected
-        octv = (best_sig.clamp(min=0) // planes_per_octave).long()
-        pair = torch.gather(diff_p, 0, octv[None])[0]
-        best_pair = torch.where(best_sig >= 0, pair, SENTINEL)
-        table = _band_candidates(
-            geom, band_logp=best_logp, band_sigidx=best_sig, band_nz=nzb[m],
-            band_c=supports[m - 1][2], ceil_table=ceil_table,
-            ceil_max=int(max(det_ceil)), st=st, log_pt=log_pt, K=K,
-            extras=(("pair", torch.where(nzb[m], best_pair, 1.0), 1.0, _INF),
-                    ("v1", band_v[1], 1.0, 1.0),
-                    ("v2", band_v[2], 1.0, 1.0)))
-        out.update({k + str(m): v for k, v in table.items()})
+    band_v = torch.where(nzb, best_v, 1.0)
+    v1, v2 = band_v[:B].repeat(2, 1, 1), band_v[B:].repeat(2, 1, 1)
+    # differential p of the detection's octave, 2 where undetected
+    octv = (best_sig.clamp(min=0) // planes_per_octave).long()
+    pair = torch.gather(diff_p.repeat(2, 1, 1, 1), 1, octv[:, None])[:, 0]
+    best_pair = torch.where(best_sig >= 0, pair, SENTINEL)
+    table = _band_candidates(
+        geom, band_logp=best_logp, band_sigidx=best_sig, band_nz=nzb,
+        band_c=band_c, ceil_table=ceil_table, ceil_max=ceil_max, st=st,
+        log_pt=log_pt, K=K,
+        extras=(("pair", torch.where(nzb, best_pair, 1.0), 1.0, _INF),
+                ("v1", v1, 1.0, 1.0), ("v2", v2, 1.0, 1.0)))
+    out = {"nz1_count": nz_count[:B], "nz2_count": nz_count[B:]}
+    for m, half in (("1", slice(0, B)), ("2", slice(B, 2 * B))):
+        out.update({k + m: v[half] for k, v in table.items()})
     return out
 
 
@@ -204,18 +206,14 @@ class DiffBlockDetector:
                              Dl=geom.Dl, valid=valid_h)
         del cs, nz
         st, log_pt = thresholds(cfg)
-        outs = []
         with rf("diff.epilogue"):
-            for b in range(B):
-                supports = [_slice_support(geom, slices[k], d_px)
-                            for k in (b, B + b)]
-                bests = [self.base.block_best(state, k, sup, scrub_nan=True)
-                         for k, sup in zip((b, B + b), supports)]
-                outs.append(_diff_detect_one(
-                    bests, supports, dp[b], det_ceil=spec.det_ceil,
-                    planes_per_octave=spec.planes_per_octave, d_px=d_px,
-                    K=self.K, st=st, log_pt=log_pt))
-            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            support = _slice_support(geom, slices, d_px)
+            best = self.base.best_state(state, support, scrub_nan=True)
+            return _diff_detect_one(
+                best, support, dp, ceil_table=self.base.ceil_table,
+                ceil_max=int(max(spec.det_ceil)),
+                planes_per_octave=spec.planes_per_octave, d_px=d_px,
+                K=self.K, st=st, log_pt=log_pt)
 
     def fn_band_packed(self, band1: torch.Tensor, band2: torch.Tensor,
                        starts) -> torch.Tensor:
@@ -324,7 +322,9 @@ def _maybe_regrow_diff(block_out: dict, cfg: DetectionConfig,
     """If either condition's candidate table overflowed, rerun this block
     with a larger capacity (``mustache_tpu/diff.py:607-624``): the
     reference selects ALL pixels with q < pt (diff_mustache.py:458,473).
-    ``rerun``: callable ``(capacity) -> block_out``."""
+    ``rerun``: callable ``(capacity) -> block_out``. Both BH modes report
+    at least the cutoff k* on overflow (count mode ``max(k*, K+1)``,
+    ``detect._bh_count``), so one rerun fits."""
     cap = cfg.max_candidates
     while True:
         sig = max(int(block_out["sig_count1"]),
@@ -417,12 +417,12 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
         # band blurs). tools/diff_batch_memory.py measured 191.7 MB a
         # block at n=2000, Dl=512 (127.0 MB of it the planes) and
         # 1079.0 MB at n=4000, Dl=2048 (769.5 MB), on an NVIDIA H100
-        # 80GB HBM3 at 700 W. The epilogue runs one block at a time: two
-        # tables' state, at most 128 * n * Dl bytes once per batch.
+        # 80GB HBM3 at 700 W. The epilogue runs on the whole batch: two
+        # tables' state a block, counted at 128 * n * Dl bytes more (the
+        # single-map rule's 64 * n * Dl per table).
         Dl = bands1[0].shape[1]
         Bl = runner.local_batch(
-            cfg, nblocks, per_block=28 * width * width + 80 * width * Dl,
-            reserve=128 * width * Dl)
+            cfg, nblocks, per_block=28 * width * width + 208 * width * Dl)
     else:
         # the JAX package's XLA cap for the triple ladder: ~135 n^2 live
         # elements of the compute dtype per block (mustache_tpu/diff.py:
@@ -444,26 +444,24 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
         row = d.fn_band_packed(*pairs[k], [s]).cpu().numpy()[0]
         return unpack_block(d.out_spec, row)
 
-    if plan is not None:
-        launches, run = plan.launches(Bl), runner.run_rowshard
-    else:
-        launches, run = runner.replicated_launches(start, Bl), runner.run
+    launches = (plan.launches(Bl) if plan is not None
+                else runner.replicated_launches(start, Bl))
     # rows tagged by block index: entries return their blocks
-    # entry-major, so block order is restored by a stable sort at the end
+    # entry-major, so block order is restored by a stable sort at the end;
+    # the next batch runs on the device while this loop finishes a batch
     tagged = []
-    for idxs, sl in launches:
-        for i, k, s, row in run(dets, pairs, idxs, sl):
-            block_out = _maybe_regrow_diff(
-                unpack_block(dets[0].out_spec, row), cfg,
-                lambda cap, k=k, s=s: rerun_block(k, s, cap))
-            groups = finish_diff_block(block_out, start=start[i], cfg=cfg,
-                                       spec=dets[0].spec)
-            mask = masks[i]
-            for tag, group in zip((1, 2, 3, 4), groups):
-                for r in group:
-                    if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
-                        tagged.append((i, (int(r[0]), int(r[1]), float(r[2]),
-                                           float(r[3]), tag)))
+    for i, k, s, row in runner.pipelined(dets, pairs, launches):
+        block_out = _maybe_regrow_diff(
+            unpack_block(dets[0].out_spec, row), cfg,
+            lambda cap, k=k, s=s: rerun_block(k, s, cap))
+        groups = finish_diff_block(block_out, start=start[i], cfg=cfg,
+                                   spec=dets[0].spec)
+        mask = masks[i]
+        for tag, group in zip((1, 2, 3, 4), groups):
+            for r in group:
+                if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
+                    tagged.append((i, (int(r[0]), int(r[1]), float(r[2]),
+                                       float(r[3]), tag)))
     tagged.sort(key=lambda t: t[0])
     return [row for _, row in tagged]
 

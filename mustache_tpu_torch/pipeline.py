@@ -351,7 +351,9 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
         # a block holds about 16 * n^2 bytes at its peak (the f32 dense
         # block and its sentinel copy, the f32 support mask, the bool
         # mask) plus about 64 * n * Dl bytes of band-sized epilogue state
-        # (the sort's keys and int64 indices, ~20 [n, Dl] maps)
+        # (count mode's f64 ranks, int64 scatter indices and int32
+        # histogram, or sort mode's keys and int64 indices; ~20 [n, Dl]
+        # maps)
         per_block = 16 * width * width + 64 * width * band_shape[1]
     else:
         # the JAX package's XLA per-block size: ~45 n^2 live elements of
@@ -372,26 +374,24 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
         row = det.fn_band_packed(bands[k], [s]).cpu().numpy()[0]
         return unpack_block(det.out_spec, row)
 
-    if plan is not None:
-        launches, run = plan.launches(Bl), runner.run_rowshard
-    else:
-        launches, run = runner.replicated_launches(start, Bl), runner.run
+    launches = (plan.launches(Bl) if plan is not None
+                else runner.replicated_launches(start, Bl))
     spec = detectors[0].out_spec
     # rows tagged by block index: entries return their blocks
-    # entry-major, so block order is restored by a stable sort at the end
+    # entry-major, so block order is restored by a stable sort at the end;
+    # the next batch runs on the device while this loop finishes a batch
     tagged: list[tuple[int, Loop]] = []
-    for idxs, sl in launches:
-        for i, k, s, row in run(detectors, bands, idxs, sl):
-            block_out = _maybe_regrow(
-                unpack_block(spec, row), cfg,
-                lambda cap, k=k, s=s: rerun_block(k, s, cap))
-            rows = finish_block(block_out, block_index=i, start=start[i],
-                                cfg=cfg, spec=detectors[0].spec)
-            mask = masks[i]
-            for r in rows:
-                if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
-                    tagged.append((i, Loop(int(r[0]), int(r[1]),
-                                           float(r[2]), float(r[3]))))
+    for i, k, s, row in runner.pipelined(detectors, bands, launches):
+        block_out = _maybe_regrow(
+            unpack_block(spec, row), cfg,
+            lambda cap, k=k, s=s: rerun_block(k, s, cap))
+        rows = finish_block(block_out, block_index=i, start=start[i],
+                            cfg=cfg, spec=detectors[0].spec)
+        mask = masks[i]
+        for r in rows:
+            if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
+                tagged.append((i, Loop(int(r[0]), int(r[1]),
+                                       float(r[2]), float(r[3]))))
     tagged.sort(key=lambda t: t[0])
     return [lp for _, lp in tagged]
 
@@ -400,8 +400,10 @@ def _maybe_regrow(block_out: dict, cfg: DetectionConfig, rerun) -> dict:
     """If the candidate table overflowed (more pixels below the q threshold
     than capacity), rerun this single block with a larger capacity.
     ``rerun``: callable ``(capacity) -> block_out``. Sort-mode BH reports
-    the exact sig_count, so one rerun fits; the loop is kept from the JAX
-    package, whose count mode reports a lower bound."""
+    the exact sig_count; on overflow count-mode BH reports ``max(k*,
+    K+1)`` with the exact cutoff k* (``detect._bh_count``), so in either
+    mode one rerun fits. The loop is kept from the JAX package, whose
+    count mode reports a lower bound."""
     cap = cfg.max_candidates
     while True:
         sig = int(block_out["sig_count"])

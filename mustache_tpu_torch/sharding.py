@@ -169,6 +169,19 @@ class RowShardPlan:
         return out
 
 
+def _to_host(out: torch.Tensor):
+    """``(host tensor, event or None)``: a CUDA tensor's copy queued into
+    pinned host memory with an event recorded after it; a CPU tensor is
+    its own host copy."""
+    if out.device.type != "cuda":
+        return out, None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
 def _on(dev: torch.device):
     """``dev`` as the current CUDA device (nothing on the CPU)."""
     return (torch.cuda.device(dev) if dev.type == "cuda"
@@ -180,12 +193,13 @@ class MeshRunner:
 
     The pipelines place the chromosome's band on every entry
     (:meth:`place_band`) or one slab on each (:meth:`place_band_rowshard`),
-    build one detector per device (:meth:`per_device`), and hand each
-    launch's ``(idxs, starts)`` to :meth:`run`, which launches every
-    entry's share before the first device-to-host copy and returns the
-    packed rows entry-major; the pipelines restore block order with a
-    stable sort. ``launches[e]`` counts the fused-kernel launches made on
-    grid entry e (the kernel wrapper's own count, read around each call;
+    build one detector per device (:meth:`per_device`), and hand their
+    launches' ``(idxs, starts)`` to :meth:`pipelined`, which launches
+    every entry's share of a batch before the first device-to-host copy,
+    and the next batch before it collects this one, and yields the packed
+    rows batch by batch, entry-major; the pipelines restore block order
+    with a stable sort. ``launches[e]`` counts the fused-kernel launches
+    made on grid entry e (the kernel wrapper's own count, read around each call;
     the pipelines launch on the owners)."""
 
     def __init__(self, mesh: Mesh, band_placement: str = "replicate",
@@ -290,14 +304,15 @@ class MeshRunner:
                         idxs.append(None)
             yield idxs, sl
 
-    def run(self, detectors, bands, idxs, starts_local):
-        """One launch over the mesh: entry k runs ``detectors[k].
+    def launch(self, detectors, bands, idxs, starts_local):
+        """Launch one batch over the mesh: entry k runs ``detectors[k].
         fn_band_packed(*bands[k], starts)`` (``bands[k]``: the entry's
-        band, or a tuple of the two conditions' for the differential
-        detector) on its real slots of ``starts_local[k]`` (pad slots are
-        dropped, an entry without real slots is skipped). Every entry is
-        launched before the first copy to the host. Returns ``[(global
-        index, entry, local start, packed row)]``, entry-major."""
+        band or slab, or a tuple of the two conditions' for the
+        differential detector) on its real slots of ``starts_local[k]``
+        (pad slots are dropped, an entry without real slots is skipped),
+        then queues the packed buffer's copy to pinned host memory and
+        records an event after it (on the CPU the buffer is the host
+        copy). Nothing waits for the device; :meth:`collect` does."""
         Bl = starts_local.shape[1]
         pending = []
         for k, dev in enumerate(self.devices):
@@ -309,21 +324,42 @@ class MeshRunner:
             before = fused_ladder.LAUNCHES
             with _on(dev):
                 out = detectors[k].fn_band_packed(*band, local)
+                host, done = _to_host(out)
             self.launches[k * self.nr] += fused_ladder.LAUNCHES - before
-            pending.append((k, slots, local, out))
+            pending.append((k, slots, local, host, done))
+        return idxs, Bl, pending
+
+    @staticmethod
+    def collect(launched):
+        """Wait for a :meth:`launch`'s copies; returns ``[(global index,
+        entry, local start, packed row)]``, entry-major."""
+        idxs, Bl, pending = launched
         rows = []
-        for k, slots, local, out in pending:
-            host = out.cpu().numpy()
+        for k, slots, local, host, done in pending:
+            if done is not None:
+                done.synchronize()
+            host = host.numpy()
             for pos, (j, s) in enumerate(zip(slots, local)):
                 rows.append((idxs[k * Bl + j], k, s, host[pos]))
         return rows
 
-    def run_rowshard(self, detectors, slabs, idxs, starts_local):
-        """One launch of the row-shard placement: ``(idxs,
-        starts_local)`` from :meth:`RowShardPlan.launches`, on the
-        entries' slabs (a slab pair each for the differential detector);
-        :meth:`run` does the work."""
-        return self.run(detectors, slabs, idxs, starts_local)
+    def pipelined(self, detectors, bands, launches):
+        """The rows of every batch of ``launches`` (``(idxs,
+        starts_local)`` pairs from :meth:`replicated_launches` or
+        :meth:`RowShardPlan.launches`), batch by batch in order, as
+        :meth:`collect` returns them. Batch k+1 is launched before batch
+        k is collected, so the device runs it while the caller finishes
+        batch k's rows on the host (``mustache_tpu/pipeline.py:502-510``);
+        batch k's copy is queued before batch k+1's kernels, so
+        collecting it does not wait for them."""
+        pending = None
+        for idxs, sl in launches:
+            launched = self.launch(detectors, bands, idxs, sl)
+            if pending is not None:
+                yield from self.collect(pending)
+            pending = launched
+        if pending is not None:
+            yield from self.collect(pending)
 
     def __call__(self, detectors, blocks):
         """The dense entry (``mustache_tpu/sharding.py:262-277``):

@@ -6,7 +6,8 @@ without -ch, prefetch, ingest faults and resume, JSON log) and the
 sharding flags. The JAX CLI's output on these files is the committed
 golden ``tests/data/torch_port_cpu_f32_golden.json`` (``tools/
 make_torch_golden.py --slice cpu_f32``: the JAX CLI run as the JAX
-package's tests run it, BH in exact sort mode, the port's only mode)."""
+package's tests run it, BH in exact sort mode; both of the port's BH
+modes give its rows)."""
 
 import json
 import os

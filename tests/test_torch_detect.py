@@ -3,10 +3,12 @@ the same band state.
 
 The band state (best response, best plane, per-plane partials) comes from
 the port's plain fused-ladder version on a normalized synthetic band; the
-JAX side runs ``_detect_one(band_state=..., band_slice=...)`` with its BH
-held in exact "sort" mode (the port's only mode). Counts and candidate
-sets must be equal, log q within rtol 2e-4 / atol 1e-4 (the f32
-tolerance of tests/test_pallas.py).
+JAX side runs ``_detect_one(band_state=..., band_slice=...)``. Both
+packages' BH are held in exact "sort" mode, whose neighbour export gives
+every tested neighbour its q (count mode gives the non-significant ones
+q = 1; tests/test_torch_bh_count.py holds the modes to each other).
+Counts and candidate sets must be equal, log q within rtol 2e-4 / atol
+1e-4 (the f32 tolerance of tests/test_pallas.py).
 """
 
 import jax.numpy as jnp
@@ -52,6 +54,7 @@ def _run_both(n, d_px, seed, start, monkeypatch, K=256):
     sl, dense, state, spec = _state(n, d_px, seed, start)
     st, lp = np.float32(cfg.st), np.float32(np.log(cfg.pt))
     monkeypatch.setattr(jdetect, "_BH_MODE", "sort")
+    monkeypatch.setattr(tdetect, "_BH_MODE", "sort")
     want = jdetect._detect_one(
         jnp.asarray(dense.numpy()), st, lp,
         kernels=spec.kernels.astype(np.float32), det_ceil=spec.det_ceil,
@@ -121,8 +124,9 @@ def test_packed_finish_block_rows_match_jax(monkeypatch):
 
 @pytest.mark.parametrize("case", ["ties", "random"])
 def test_bh_logq_matches_statsmodels_formula(case):
-    """Exact BH on tied p (the case count-mode BH gets wrong, ROADMAP
-    Queue 3 item 1: 50 tied p=0.02 of 100 at pt=0.05 all reject)."""
+    """Exact BH on tied p (the case the JAX package's count-mode overflow
+    test gets wrong, ROADMAP Queue 3 item 2: 50 tied p=0.02 of 100 at
+    pt=0.05 all reject)."""
     rng = np.random.default_rng(5)
     if case == "ties":
         p = np.concatenate([np.full(50, 0.02), rng.uniform(0.5, 1.0, 50)])

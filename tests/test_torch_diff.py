@@ -1,6 +1,8 @@
 """The port's differential detection (``mustache_tpu_torch.diff``) against
 the JAX package's (``mustache_tpu.diff``) on the same numpy inputs, on the
-CPU. The JAX side runs its BH in exact "sort" mode (the port's only mode).
+CPU. Both packages run their BH in exact "sort" mode here, whose
+neighbour export gives every tested neighbour its q (the modes are held
+to each other in tests/test_torch_bh_count.py).
 
 * ``_band_candidates`` with extras: equal tables on the same band state;
 * the difference planes and their folded-normal p: the port's two f32
@@ -44,6 +46,7 @@ CPU = torch.device("cpu")
 @pytest.fixture(autouse=True)
 def _sort_mode_bh(monkeypatch):
     monkeypatch.setattr(jdetect, "_BH_MODE", "sort")
+    monkeypatch.setattr(tdetect, "_BH_MODE", "sort")
 
 
 def _bands(n_bins, d_px, n, seeds):
@@ -91,11 +94,12 @@ def test_band_candidates_extras_match_jax():
         arrs, [a for _, a, _, _ in extras])
     got = tdetect._band_candidates(
         tdetect._BandGeom(N, d_px, CPU),
-        **{k: torch.from_numpy(a) for k, a in arrs.items()},
+        **{k: torch.from_numpy(a)[None] for k, a in arrs.items()},
         ceil_table=torch.as_tensor(det_ceil), ceil_max=max(det_ceil),
         st=float(st), log_pt=float(lp), K=K,
-        extras=tuple((nm, torch.from_numpy(a), i, o)
+        extras=tuple((nm, torch.from_numpy(a)[None], i, o)
                      for nm, a, i, o in extras))
+    got = {k: a[0] for k, a in got.items()}
     assert set(got) == set(want) >= {"neigh_pair", "neigh_v1", "neigh_v2"}
     assert int(want["sig_count"]) > 0
     for k in want:
@@ -118,9 +122,10 @@ def test_extras_default_keeps_the_single_map_table():
     bs = torch.where(geom.band_validl, sl_state[:, :Dl], 0.0)
     nz = geom.band_validl & (bs != 0) & (geom.band_dl >= 4)
     out = tdetect._band_candidates(
-        geom, band_logp=torch.where(nz, -bs.abs() * 10, float("inf")),
-        band_sigidx=torch.zeros_like(nz, dtype=torch.int32), band_nz=nz,
-        band_c=bs, ceil_table=torch.as_tensor([2] * 18), ceil_max=2,
+        geom, band_logp=torch.where(nz, -bs.abs() * 10, float("inf"))[None],
+        band_sigidx=torch.zeros_like(nz, dtype=torch.int32)[None],
+        band_nz=nz[None], band_c=bs[None],
+        ceil_table=torch.as_tensor([2] * 18), ceil_max=2,
         st=0.8, log_pt=float(np.log(0.1)), K=64)
     shapes = tdetect.out_shapes(64)
     assert set(out) == set(shapes) - {"nz_count"}

@@ -6,7 +6,7 @@ resume after an injected ingest fault; the error exits; the JSON log; and
 the sharding flags. The JAX diff CLI's four files on these inputs are the
 committed golden ``tests/data/torch_port_cpu_f32_golden.json``
 (``tools/make_torch_golden.py --slice cpu_f32``: BH in exact sort mode,
-the port's only mode, on one device)."""
+on one device; both of the port's BH modes give its rows)."""
 
 import contextlib
 import io

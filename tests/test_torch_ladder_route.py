@@ -133,14 +133,15 @@ def _assert_rows(got, want, rtol, atol=0.0):
 def f64_block():
     """tests/test_detect.py's f64 block (N=700, d_px 120) through the port
     and, once, through the JAX package's float64 fn_single."""
-    mode, jdetect._BH_MODE = jdetect._BH_MODE, "sort"
+    modes = jdetect._BH_MODE, tdetect._BH_MODE
+    jdetect._BH_MODE = tdetect._BH_MODE = "sort"
     try:
         c = _block(700, 120, 11)
         cfg = DetectionConfig(resolution=5000, distance_bp=120 * 5000,
                               pt=0.2, st=0.88, precision="float64")
         return c, cfg, _port_rows(c, cfg), _jax_rows(c, cfg)
     finally:
-        jdetect._BH_MODE = mode
+        jdetect._BH_MODE, tdetect._BH_MODE = modes
 
 
 def test_f64_block_matches_jax_f64(f64_block):
@@ -183,7 +184,9 @@ def jax_xla_rows():
     (300, 64, 13, dict(octaves=5)),
     (300, 64, 13, dict(octaves=5, use_pallas="off")),
 ])
-def test_f32_ladder_matches_jax_xla(n, d_px, seed, kw, jax_xla_rows):
+def test_f32_ladder_matches_jax_xla(n, d_px, seed, kw, jax_xla_rows,
+                                   monkeypatch):
+    monkeypatch.setattr(tdetect, "_BH_MODE", "sort")
     cfg = DetectionConfig(resolution=5000, distance_bp=d_px * 5000, pt=0.2,
                           st=0.88, min_tested=5000, **kw)
     assert tdetect.resolve_route(cfg) == (

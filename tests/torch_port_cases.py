@@ -29,7 +29,8 @@ The float64 cases' maps are those of ``tests/test_pipeline.py`` and
 CLI files those of ``tests/test_torch_cli.py`` and
 ``tests/test_torch_diff_cli.py``. Each of their JAX results is a float64
 run of the JAX package on the CPU with its BH in exact sort mode (the
-port's only mode): one JAX f64 block of 2000^2 takes 15-25 s there,
+port's two modes give the same rows): one JAX f64 block of 2000^2 takes
+15-25 s there,
 which is why the tests read a golden instead.
 
 The module also keeps torch on one intra-op thread in every process that

@@ -12,7 +12,7 @@ modes) and writes the reference-format TSV:
 * ``1kb``: the bench 1 kb slice (``synthetic_hic(12000, 2000, seed=1011,
   n_loops=150, loop_strength=3.0, density=0.95)``, as
   ``bench.py::build_workload_1kb``; blocks of 4000^2) with the JAX BH in
-  exact sort mode (the port's only mode), to
+  exact sort mode (both of the port's BH modes give its rows), to
   ``tests/data/torch_port_1kb_golden.tsv``;
 * ``diff5kb``: the bench differential workload (``bench.py`` diff leg:
   the chr21 5 kb map at seeds 2021 and 2022 as the two conditions,
