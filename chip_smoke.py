@@ -167,7 +167,28 @@ Phases, in order; any failure exits non-zero:
    from one profiled run per mode the device ms by range (the epilogue's
    among them), the kernel launches and copies per chromosome, beside the
    card's name and power limit; chr21 5 kb in batches of 2 (three
-   batches, pipelined) and of 1 gives the rows of one batch.
+   batches, pipelined) and of 1 gives the rows of one batch;
+14. whole chromosomes at 1 kb (blocks of 4000^2, a band 2048 wide): chr21
+   (``synthetic_hic(46710, 2000, seed=1011, n_loops=580, ...)``, 23 blocks)
+   and chr1 (``synthetic_hic(248956, 2000, seed=1001, n_loops=3100, ...,
+   density=0.9, density_decay=0.25)``, 124 blocks; made in a second
+   process while chr21 runs). For each: the host band fill and the
+   streamed upload timed; the normalize stage alone, its peak device
+   memory at most 4 f32 bands and below the whole call's, timed with CUDA
+   events (on chr21 held to the whole-band normalize by ``torch.equal``,
+   or the largest difference printed); ``detect_loops_coo`` cold, three
+   times warm and in turns (auto batches, ``block_batch=1`` twice, auto),
+   one fused launch a batch, every run's rows identical; rows held under
+   phase 4's rule to the JAX golden (tests/data/torch_port_chr21_1kb_golden.
+   tsv and, where committed, ..._chr1_1kb_golden.tsv, ``tools/
+   make_torch_golden.py --slice chr21_1kb``); the planted anchors found;
+   one profiled warm run (device ms by stage, the f64 cumsums' share of
+   the normalize, kernel ms per launch, host finish ms, device busy
+   share); chr21 through the CLI from an ``.mcool`` of float64 counts
+   (``tools/write_cool.py``), its TSV equal to the direct call's and the
+   golden, with the CLI's ingest / detect split; chr1's first batch (B as
+   the rule picks) through the kernel against its plain version under
+   phase 3's checks, both timed.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -3131,6 +3152,601 @@ def phase_bh_modes(dev):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------------
+
+# whole chromosomes at 1 kb: the 1 kb slice's parameters over all of hg38
+# chr21 (46,709,983 bp), and hg38 chr1 (248,956,422 bp) at a density of
+# 0.9 falling as (1 + d)^-0.25 (0.76 next to the diagonal, 0.13 at 2 Mb:
+# sparse away from the diagonal, as a Micro-C map at 1 kb is; 88.7 M
+# contacts where the slice's density would give 413 M)
+CHR21_1KB = ((46710, 2000), dict(seed=1011, n_loops=580, loop_strength=3.0,
+                                 density=0.95))
+CHR1_1KB = ((248956, 2000), dict(seed=1001, n_loops=3100, loop_strength=3.0,
+                                 density=0.9, density_decay=0.25))
+GOLDEN_CHR21_1KB = os.path.join(ROOT, "tests", "data",
+                                "torch_port_chr21_1kb_golden.tsv")
+GOLDEN_CHR1_1KB = os.path.join(ROOT, "tests", "data",
+                               "torch_port_chr1_1kb_golden.tsv")
+WHOLE_RANGES = ("pipeline.upload", "pipeline.normalize", "detect.preamble",
+                "detect.kernel", "detect.epilogue", "pipeline.finish")
+NORM_PEAK_BANDS = 4   # the normalize stage's peak, in f32 bands, at most
+NEAR_BINS = 2         # a call "finds" a planted anchor within this many bins
+
+
+def whole_chrom_cfg(spec):
+    from mustache_tpu_torch import DetectionConfig
+
+    (_, d_px), _ = spec
+    return DetectionConfig(resolution=1000, distance_bp=d_px * 1000, pt=PT,
+                           st=ST)
+
+
+def whole_chrom_geometry(spec, n=None):
+    """``(blocks, band shape)`` of a whole-chromosome workload at ``n``
+    bins (default: the chromosome's), from the port's own geometry."""
+    from mustache_tpu_torch.bandnorm import bucket_rows
+    from mustache_tpu_torch.config import chunk_grid
+    from mustache_tpu_torch.detect import band_width
+
+    (n_bins, _), _ = spec
+    n = n_bins if n is None else n
+    cfg = whole_chrom_cfg(spec)
+    width, d_px = cfg.chunk_size, cfg.distance_px
+    return (len(chunk_grid(n, width, d_px)[0]),
+            (bucket_rows(max(n, width)), band_width(width, d_px)))
+
+
+def plan_batches(plan: str):
+    """``(blocks, batch, batches)`` from a ``detect_plan`` line."""
+    kv = dict(t.split("=", 1) for t in plan.split() if "=" in t)
+    blocks, batch = int(kv["blocks"]), int(kv["batch"])
+    return blocks, batch, -(-blocks // batch)
+
+
+def planted_shares(loops, anchors, tol=NEAR_BINS):
+    """(share of planted anchors with a call within ``tol`` bins on both
+    axes, share of calls within ``tol`` bins of a planted anchor)."""
+    a = np.asarray(anchors, dtype=np.int64).reshape(-1, 2)
+    c = np.array([(lp.bin1, lp.bin2) for lp in loops],
+                 dtype=np.int64).reshape(-1, 2)
+    if not len(a) or not len(c):
+        return 0.0, 0.0
+    near = ((np.abs(a[:, None, 0] - c[None, :, 0]) <= tol)
+            & (np.abs(a[:, None, 1] - c[None, :, 1]) <= tol))
+    return float(near.any(1).mean()), float(near.any(0).mean())
+
+
+def start_workload_process(spec, path):
+    """A second Python process that makes ``spec``'s map and saves it as
+    ``path`` (``.npz``: x, y, v, anchors), so one chromosome's map is
+    made while the card works on another. The caller waits for it
+    (:func:`load_workload_process`)."""
+    code = ("import json, sys; import numpy as np; "
+            "sys.path.insert(0, sys.argv[1]); "
+            "from synthetic import synthetic_hic; "
+            "a, kw = json.loads(sys.argv[2]); "
+            "x, y, v, anchors = synthetic_hic(*a, **kw); "
+            "np.savez(sys.argv[3], x=x, y=y, v=v, "
+            "anchors=np.array(anchors, dtype=np.int64).reshape(-1, 2))")
+    return subprocess.Popen([sys.executable, "-c", code,
+                             os.path.join(ROOT, "tests"), json.dumps(spec),
+                             path])
+
+
+def load_workload_process(proc, path, timeout=900):
+    """The map :func:`start_workload_process` saved, once its process
+    ends (killed if it outlives ``timeout`` seconds); the file is
+    removed."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        fail(f"the workload process exited {rc}")
+    with np.load(path) as z:
+        out = z["x"], z["y"], z["v"], z["anchors"]
+    os.remove(path)
+    return out
+
+
+def whole_band_normalize(band_raw, n, resolution, distance_in_px,
+                         exceptions=None, packed4=False):
+    """The device normalize as one whole-band pass, the port's form
+    before its row slabs: every window sum from f64 cumsums of the whole
+    band (three band-sized f64 arrays and their shifted copies at once).
+    Phase 14 and tests/test_torch_whole_chrom.py hold
+    ``bandnorm.normalize_band_device`` to it bit for bit."""
+    from mustache_tpu_torch.bandnorm import _norm_regime, widen_with_exceptions
+
+    band = widen_with_exceptions(band_raw, exceptions, packed4)
+    rows, Dl = band.shape
+    regime = _norm_regime(rows, Dl, n, resolution, distance_in_px)
+    occ = band != 0
+    cnt_g = occ.to(band.dtype).sum(0)
+    mean_g = band.sum(0) / cnt_g
+    mean_g = torch.where(torch.isfinite(mean_g), mean_g, 0.0)
+    var = torch.where(occ, (band - mean_g[None, :]) ** 2, 0.0).sum(0) / cnt_g
+    std_g = torch.sqrt(var)
+    std_g = torch.where(torch.isfinite(std_g), std_g, 1.0)
+    weights = 1.0 + torch.log1p(mean_g) / math.log(30.0)
+    dcol = torch.arange(Dl, device=band.device)[None, :]
+    if regime[0] == "global":
+        z = (band - mean_g[None, :]) / std_g[None, :]
+        z = torch.where(torch.isfinite(z), z, 0.0)
+        return (torch.where(occ & (dcol < regime[1]), z, band),
+                band.new_zeros((0,)))
+    _, F, Dv, short_cols = regime
+
+    def cumsum0(a):
+        cs = torch.cumsum(a, dim=0, dtype=torch.float64)
+        return torch.cat([torch.zeros_like(cs[:1]), cs], 0)
+
+    if short_cols:
+        lend = np.clip(n - np.arange(Dl), 0, rows)
+        offd = np.where(lend < F, (np.maximum(lend, 1) - 1) // 2,
+                        (F - 1) // 2)
+        i = np.arange(rows)[:, None]
+        hi_idx, lo_idx = (torch.as_tensor(a, dtype=torch.int64,
+                                          device=band.device) for a in (
+            np.clip(i + offd[None, :] + 1, 0, lend[None, :]),
+            np.clip(i + offd[None, :] - F + 1, 0, lend[None, :])))
+
+        def win(a):
+            cs = cumsum0(a)
+            return (torch.gather(cs, 0, hi_idx)
+                    - torch.gather(cs, 0, lo_idx)).to(a.dtype)
+    else:
+        off = (F - 1) // 2
+
+        def win(a):
+            cs = cumsum0(a)
+            hi = torch.cat([cs, cs[-1:].expand(off, Dl)], 0)[
+                off + 1: off + 1 + rows]
+            sh = off - F + 1
+            lo = torch.cat([cs.new_zeros((-sh, Dl)), cs[: rows + sh]], 0)
+            return (hi - lo).to(a.dtype)
+
+    bandp = torch.where(occ, band + 0.001, 0.0)
+    mcol = mean_g + 0.001
+    bc = torch.where(occ, bandp - mcol[None, :], 0.0)
+    cnt, s1c, s2c = win(occ.to(band.dtype)), win(bc), win(bc * bc)
+    lm = mcol[None, :] + s1c / cnt
+    lv = (s2c - s1c * s1c / cnt) / (cnt - 1)
+    gs2 = (std_g * std_g)[None, :].expand_as(lv)
+    gm = mean_g[None, :].expand_as(lm)
+    lv = torch.where(torch.isfinite(lv), lv, gs2)
+    low = cnt < 30
+    lm = torch.where(low, gm, lm)
+    lv = torch.where(low, gs2, lv)
+    lm = torch.where(torch.isfinite(lm), lm, gm)
+    z = (bandp - lm) / torch.sqrt(lv)
+    z = torch.where(torch.isfinite(z), z, 0.0)
+    z = z * weights[None, :]
+    return torch.where(occ & (dcol < Dv), z, band), weights[:Dv]
+
+
+def whole_trace_report(path):
+    """One pass over a profiled whole-chromosome run's Chrome trace:
+    device ms of the kernels, copies and sets launched in each of
+    ``WHOLE_RANGES`` (by launch correlation, as :func:`trace_range_time`),
+    the f64 cumsums' ms among the normalize's (kernels named ``*scan*``),
+    the fused kernel's ms and launches, the host ms of each range's CPU
+    spans, and the device ms by category (kernel, memcpy, memset)."""
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    spans, launches, kernels = [], {}, []
+    by_cat = {}
+    host = {k: 0.0 for k in WHOLE_RANGES}
+    for ev in events:
+        cat = ev.get("cat", "")
+        corr = ev.get("args", {}).get("correlation")
+        if cat == "user_annotation" and ev.get("name") in host:
+            spans.append((ev["name"], ev["ts"], ev["ts"] + ev["dur"]))
+            host[ev["name"]] += ev["dur"] / 1e3
+        elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launches[corr] = ev["ts"]
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ms = ev.get("dur", 0) / 1e3
+            by_cat[cat] = by_cat.get(cat, 0.0) + ms
+            if corr is not None:
+                kernels.append((corr, ev["name"], ms))
+    dev = {k: 0.0 for k in WHOLE_RANGES}
+    scan_ms = fused_ms = 0.0
+    fused_n = 0
+    for corr, name, ms in kernels:
+        if "fused_ladder" in name:
+            fused_ms += ms
+            fused_n += 1
+        t = launches.get(corr)
+        for rname, t0, t1 in spans:
+            if t is not None and t0 <= t <= t1:
+                dev[rname] += ms
+                if rname == "pipeline.normalize" and "scan" in name:
+                    scan_ms += ms
+                break
+    return dict(device_ms=dev, host_ms=host, scan_ms=scan_ms,
+                fused_ms=fused_ms, fused_launches=fused_n, by_cat=by_cat)
+
+
+def profile_whole(fn):
+    """One profiled run of ``fn``: its wall and :func:`whole_trace_report`
+    of its trace; None where the trace holds no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        rep = whole_trace_report(path)
+    if rep["by_cat"].get("kernel", 0.0) <= 0:
+        return None
+    rep["wall_s"] = wall
+    rep["busy_share"] = sum(rep["by_cat"].values()) / 1e3 / wall
+    return rep
+
+
+def whole_bound_ms(spec, blocks):
+    """The kernel's bound (:func:`kernel_bound`) over all of a whole
+    chromosome's blocks at the default ladder, in ms."""
+    from mustache_tpu_torch.detect import band_width
+    from mustache_tpu_torch.scalespace import build_ladder
+
+    cfg = whole_chrom_cfg(spec)
+    N = cfg.chunk_size
+    return kernel_bound(build_ladder(cfg.octave_values), N,
+                        band_width(N, cfg.distance_px), blocks)[2]
+
+
+def hold_batch_to_plain(label, band, starts, cfg, dev):
+    """The fused kernel against its plain version on the main path's
+    batch: the chromosome's first blocks at the batch the rule picked
+    (``starts``), cut from its normalized band as the detector cuts them,
+    under phase 3's checks; both timed with CUDA events. Returns the
+    report's numbers."""
+    from mustache_tpu_torch.detect import _preamble, band_width, dense_from_band
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from mustache_tpu_torch.scalespace import (
+        build_ladder, ladder_tensor, radii_tensor,
+    )
+
+    N, d_px = cfg.chunk_size, cfg.distance_px
+    DB = band_width(N, d_px)
+    spec = build_ladder(cfg.octave_values)
+    taps = ladder_tensor(spec.kernels, dev)
+    radii = radii_tensor(spec.blur_sigmas, dev)
+    slices = torch.stack([band[s: s + N] for s in starts])
+    cs, nz = _preamble(dense_from_band(slices), d_px)
+    nzf = nz.to(torch.float32)
+    del nz
+    B = len(starts)
+    err, locs_err, sums_rel, n_sig, kw = hold_to_plain(
+        "14", label, cs, nzf, slices, [1] * B, spec, taps, radii, d_px, DB)
+    ms = cuda_ms(lambda: fl.fused_ladder_nms_batched(
+        cs, nzf, taps, radii=radii, **kw), reps=5)
+    plain_ms = cuda_ms(
+        lambda: fl.fused_ladder_nms_reference(cs, nzf, taps, **kw), reps=1)
+    flop, nbytes, bound_ms, bound_by = kernel_bound(spec, N, DB, B)
+    say(f"[14] {label}: the kernel on the main path's first batch (B={B}, "
+        f"N={N}, DB={DB}) against its plain version: {n_sig} significant "
+        f"candidates equal, band_v max abs err {err:.3g}, locs "
+        f"{locs_err:.3g}, sums rel {sums_rel:.3g}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms; {flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB "
+        f"-> bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}")
+    del cs, nzf, slices
+    torch.cuda.empty_cache()
+    return dict(B=B, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms)
+
+
+def whole_chrom_run(label, spec, coo, anchors, dev, smi, *, golden=None,
+                    workdir=None, check_whole_norm=False, hold_batch=False):
+    """Phase 14 on one chromosome: the host band fill and streamed upload
+    timed; the normalize stage alone (its peak device memory at most
+    ``NORM_PEAK_BANDS`` f32 bands, its CUDA-event ms; with
+    ``check_whole_norm`` equal by ``torch.equal`` to
+    :func:`whole_band_normalize`); ``detect_loops_coo`` cold (one fused
+    launch a batch, the call's peak above the normalize's, rows held to
+    ``golden`` under phase 4's rule where given), three times warm, and
+    in turns auto, ``block_batch=1``, ``block_batch=1``, auto (every run's
+    rows identical to the cold run's); one profiled warm run (device ms
+    by stage, the cumsums' share of the normalize, host finish, busy
+    share); the planted anchors found; with ``workdir``, the CLI from an
+    ``.mcool`` of the map held to ``golden``; with ``hold_batch``, the
+    kernel against its plain version on the first batch."""
+    from mustache_tpu_torch import detect_loops_coo
+    from mustache_tpu_torch.bandnorm import normalize_band_device, pad_exceptions
+    from mustache_tpu_torch.config import chunk_grid
+    from mustache_tpu_torch.kernels import fused_ladder as fl
+    from mustache_tpu_torch.pipeline import (
+        fill_raw_band_compact, local_runner, normalized_bands,
+        stream_band_to_device,
+    )
+
+    x, y, v = coo
+    cfg = whole_chrom_cfg(spec)
+    n = int(max(x.max(), y.max())) + 1
+    blocks, shape = whole_chrom_geometry(spec, n)
+    band_bytes = 4 * shape[0] * shape[1]
+    rep = dict(contacts=len(v), n=n, blocks=blocks, band_rows=shape[0],
+               band_cols=shape[1], band_f32_bytes=band_bytes)
+
+    # the host fill alone, then the streamed upload (fill + H2D overlapped)
+    t0 = time.perf_counter()
+    fill_raw_band_compact(x, y, v, shape)
+    rep["fill_ms"] = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    up = stream_band_to_device(x, y, v, shape, dev)
+    torch.cuda.synchronize()
+    rep["stream_ms"] = 1e3 * (time.perf_counter() - t0)
+    pad = (None if up.exceptions is None
+           else pad_exceptions(up.exceptions, shape[0]))
+
+    def peak_of(fn):
+        """``fn()``'s result and the device bytes it held at its peak
+        beyond what was allocated before it (the raw band, for the
+        normalize)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() - (
+            up.band.numel() if up is not None else 0)
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    # the normalize stage alone: peak memory (the raw band included) and
+    # CUDA-event ms of a second call (the first allocates the stage's
+    # memory with cudaMalloc)
+    def normalize(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+
+        def go():
+            e0.record()
+            out = fn(up.band, n, cfg.resolution, cfg.distance_px,
+                     exceptions=pad, packed4=up.packed4)[0]
+            e1.record()
+            return out
+        out, peak = peak_of(go)
+        del out
+        out = go()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1), peak
+
+    norm, rep["normalize_ms"], rep["normalize_peak"] = normalize(
+        normalize_band_device)
+    ratio = rep["normalize_peak"] / band_bytes
+    say(f"[14] {label}: {len(v)} contacts, n={n}, {blocks} blocks, band "
+        f"{shape[0]} x {shape[1]} ({band_bytes / 1e9:.2f} GB as f32); host "
+        f"fill {rep['fill_ms']:.1f} ms, streamed upload {up.describe()} "
+        f"{rep['stream_ms']:.1f} ms; normalize {rep['normalize_ms']:.2f} ms, "
+        f"peak {rep['normalize_peak'] / 2**30:.2f} GiB = {ratio:.2f} f32 "
+        f"bands (raw band included)")
+    if ratio > NORM_PEAK_BANDS:
+        fail(f"{label}: the normalize stage peaked at {ratio:.2f} f32 bands "
+             f"(at most {NORM_PEAK_BANDS})")
+    if check_whole_norm:
+        ref, rep["whole_normalize_ms"], rep["whole_normalize_peak"] = \
+            normalize(whole_band_normalize)
+        rep["normalize_equal"] = torch.equal(norm, ref)
+        diff = (0.0 if rep["normalize_equal"]
+                else float((norm - ref).abs().nan_to_num(0.0).max()))
+        rep["normalize_max_diff"] = diff
+        say(f"[14] {label}: the slabbed normalize "
+            + ("equals the whole-band one (torch.equal)"
+               if rep["normalize_equal"] else
+               f"is NOT bit-identical to the whole-band one: largest "
+               f"difference {diff:.3g}")
+            + f"; whole-band {rep['whole_normalize_ms']:.2f} ms, peak "
+            f"{rep['whole_normalize_peak'] / 2**30:.2f} GiB")
+        del ref
+    del norm, up, pad
+    up = None
+    torch.cuda.empty_cache()
+
+    logs = []
+
+    def call(bb=0):
+        c = cfg.with_(block_batch=bb) if bb else cfg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loops = detect_loops_coo(x, y, v, c, log=logs.append)  # the card
+        torch.cuda.synchronize()
+        return loops, time.perf_counter() - t0
+
+    fl.LAUNCHES = 0
+    (loops, cold), rep["call_peak"] = peak_of(call)
+    launches = fl.LAUNCHES
+    plan = logs[-1]
+    _, batch, batches = plan_batches(plan)
+    say(f"[14] {label}: {plan}")
+    if "device=cuda" not in plan or "route=kernel" not in plan:
+        fail(f"{label}: detect_loops_coo did not take the kernel route on "
+             f"the card: {plan}")
+    if launches != batches:
+        fail(f"{label}: {launches} fused launches for {batches} batches")
+    if rep["normalize_peak"] >= rep["call_peak"]:
+        fail(f"{label}: the normalize stage set the call's peak "
+             f"({rep['normalize_peak']} of {rep['call_peak']} B)")
+    rows = loops_tsv_rows(loops, label, cfg.resolution)
+    golden_note = "no golden in the tree"
+    if golden is not None:
+        want = read_tsv(golden)[1]
+        n_common, worst = compare_to_golden(rows, want, tag="14")
+        golden_note = (f"{n_common} rows equal to the JAX golden (q max rel "
+                       f"err {worst:.3g})")
+    if not loops and (golden is None or want):
+        fail(f"{label}: no loops")
+    if not loops:
+        say(f"[14] {label}: no loops, as in the JAX golden: the sparsity "
+            f"filter (c2 >= 0.6 over the box of half-width 2 s1) rejects "
+            f"every significant candidate of this sparse map")
+    rep.update(batch=batch, batches=batches, launches=launches,
+               loops=len(loops), cold_s=cold)
+
+    warm = []
+    for _ in range(3):
+        again, dt = call()
+        warm.append(dt)
+        if again != loops:
+            fail(f"{label}: a warm rerun gave other rows")
+    walls = {"auto": [], "serial": []}
+    for mode in ("auto", "serial", "serial", "auto"):
+        again, dt = call(1 if mode == "serial" else 0)
+        walls[mode].append(dt)
+        if again != loops:
+            fail(f"{label}: the {mode} run gave other rows than one in "
+                 f"batches of {batch}")
+    if f"batch=1 " not in logs[-2]:
+        fail(f"{label}: block_batch=1 did not run in batches of 1")
+    rep.update(warm_s=warm, turns_auto_s=walls["auto"],
+               turns_serial_s=walls["serial"])
+    found, real = planted_shares(loops, anchors)
+    rep.update(anchors_found=found, calls_at_anchors=real)
+    say(f"[14] {label}: {len(loops)} loops, {golden_note}; {launches} fused "
+        f"launches = {batches} batches of {batch}; in batches of 1 the same "
+        f"rows bit for bit; planted anchors with a call within {NEAR_BINS} "
+        f"bins {found:.3f}, calls within {NEAR_BINS} bins of one "
+        f"{real:.3f}; peak device memory {rep['call_peak'] / 2**30:.2f} GiB "
+        f"(normalize stage {rep['normalize_peak'] / 2**30:.2f}); wall cold "
+        f"{cold:.3f} s, warm {' '.join(f'{w:.3f}' for w in warm)} s; turns "
+        f"auto {walls['auto'][0]:.3f}, serial {walls['serial'][0]:.3f}, "
+        f"serial {walls['serial'][1]:.3f}, auto {walls['auto'][1]:.3f} s; "
+        f"{smi}")
+
+    prof = profile_whole(call)
+    rep["profile"] = prof
+    if prof is None:
+        say(f"[14] {label}: device time not measured (no device events in "
+            f"the trace)")
+    else:
+        d, h = prof["device_ms"], prof["host_ms"]
+        norm_ms = d["pipeline.normalize"]
+        rep["ms_per_launch"] = prof["fused_ms"] / max(prof["fused_launches"],
+                                                       1)
+        say(f"[14] {label}: profiled warm run {prof['wall_s']:.3f} s, "
+            f"device busy share {prof['busy_share']:.3f} ("
+            + ", ".join(f"{k} {t:.1f} ms" for k, t in
+                        sorted(prof["by_cat"].items()))
+            + f"); device ms by stage: normalize {norm_ms:.2f} (f64 cumsums "
+            f"{prof['scan_ms']:.2f}, share "
+            f"{prof['scan_ms'] / max(norm_ms, 1e-9):.3f}), preamble "
+            f"{d['detect.preamble']:.2f}, kernel {d['detect.kernel']:.2f} "
+            f"({prof['fused_launches']} launches, "
+            f"{rep['ms_per_launch']:.3f} ms each), epilogue "
+            f"{d['detect.epilogue']:.2f}, upload copies "
+            f"{d['pipeline.upload']:.2f}, "
+            f"regrows in the finish {d['pipeline.finish']:.2f}; host ms: "
+            f"upload {h['pipeline.upload']:.1f}, normalize "
+            f"{h['pipeline.normalize']:.1f}, finish "
+            f"{h['pipeline.finish']:.1f} over {blocks} blocks")
+
+    if workdir is not None:
+        sys.path.insert(0, os.path.join(ROOT, "tools"))
+        import write_cool
+
+        (n_bins, _), _ = spec
+        mcool = os.path.join(workdir, f"{label}_1kb.mcool")
+        t0 = time.perf_counter()
+        write_cool.write_mcool(
+            mcool, {1000: ([(label, n_bins * 1000)], {label: (x, y, v)},
+                           None)}, count_dtype=np.float64)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(mcool)
+        out = os.path.join(workdir, f"{label}_1kb.tsv")
+        fl.LAUNCHES = 0
+        rc, events, wall = run_cli(["-f", mcool, "-ch", label, "-r", "1kb",
+                                    "-o", out, "-pt", str(PT), "-st",
+                                    str(ST)])
+        os.remove(mcool)
+        cli_plan = event(events, "detect_plan")["detail"] if rc == 0 else ""
+        if rc != 0 or "device=cuda" not in cli_plan:
+            fail(f"{label}: CLI from .mcool exited {rc}: {cli_plan}")
+        if fl.LAUNCHES != plan_batches(cli_plan)[2]:
+            fail(f"{label}: CLI {fl.LAUNCHES} fused launches for "
+                 f"{plan_batches(cli_plan)[2]} batches")
+        header, cli_rows = read_tsv(out)
+        if cli_rows != rows:
+            fail(f"{label}: CLI rows differ from detect_loops_coo's")
+        cli_note = "equal to detect_loops_coo's"
+        if golden is not None:
+            n_common, worst = compare_to_golden(cli_rows, read_tsv(golden)[1],
+                                                tag="14")
+            cli_note += (f", {n_common} equal to the golden (q max rel err "
+                         f"{worst:.3g})")
+        ingest = event(events, "ingest")["seconds"]
+        detect = event(events, "detect")["seconds"]
+        rep.update(cli_wall_s=wall, cli_ingest_s=ingest, cli_detect_s=detect,
+                   cli_launches=fl.LAUNCHES, mcool_bytes=size,
+                   mcool_write_s=t_write)
+        say(f"[14] {label}: CLI from .mcool ({size / 1e9:.2f} GB, float64 "
+            f"counts, written in {t_write:.1f} s): {len(cli_rows)} rows "
+            f"{cli_note}; {fl.LAUNCHES} fused launches; wall {wall:.3f} s = ingest "
+            f"{ingest:.3f} s + detect {detect:.3f} s (the CLI's own log)")
+
+    if hold_batch:
+        (band,), _ = normalized_bands(x, y, v, cfg, shape, n,
+                                      local_runner(dev), normalize=True,
+                                      exact=False)
+        start = chunk_grid(n, cfg.chunk_size, cfg.distance_px)[0]
+        rep["first_batch"] = hold_batch_to_plain(label, band, start[:batch],
+                                                 cfg, dev)
+        del band
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_whole_chroms(dev):
+    """Phase 14: the main path on whole chromosomes at 1 kb. chr1's map is
+    made in a second process while chr21 runs."""
+    from synthetic import synthetic_hic
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    torch.cuda.empty_cache()
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path1 = os.path.join(tmp, "chr1_1kb.npz")
+        proc = start_workload_process(CHR1_1KB, path1)
+        try:
+            (args, kw) = CHR21_1KB
+            t0 = time.perf_counter()
+            x, y, v, anchors = synthetic_hic(*args, **kw)
+            say(f"[14] chr21 1 kb: {len(v)} contacts, {len(anchors)} planted "
+                f"anchors, made in {time.perf_counter() - t0:.1f} s")
+            rep["chr21"] = whole_chrom_run(
+                "chr21", CHR21_1KB, (x, y, v), anchors, dev, smi,
+                golden=GOLDEN_CHR21_1KB, workdir=tmp, check_whole_norm=True)
+            del x, y, v
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            raise
+        t0 = time.perf_counter()
+        x, y, v, anchors = load_workload_process(proc, path1)
+        say(f"[14] chr1 1 kb: {len(v)} contacts, {len(anchors)} planted "
+            f"anchors, made in a second process (waited "
+            f"{time.perf_counter() - t0:.1f} s for it after chr21)")
+        rep["chr1"] = whole_chrom_run(
+            "chr1", CHR1_1KB, (x, y, v), anchors, dev, smi,
+            golden=GOLDEN_CHR1_1KB if os.path.exists(GOLDEN_CHR1_1KB)
+            else None, hold_batch=True)
+    say(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return rep
+
+
 def build_all():
     """Build the fused kernel (nvcc), the native band fill, host normalize
     and .hic decoder (g++) at the same time (``warmup.warm``), then load
@@ -3181,11 +3797,12 @@ def main():
         cool = phase_cool(dev, workdir, files)
         oct5 = phase_oct5(dev, workdir)
     bh = phase_bh_modes(dev)
+    whole = phase_whole_chroms(dev)
     say(json.dumps({"phase5_5kb": files, "phase6_1kb": slice_1kb,
                     "phase7_diff": diff, "phase8_ladder": ladder,
                     "phase9_inter": inter, "phase10_sharding": sharding,
                     "phase11_cool": cool, "phase12_oct5": oct5,
-                    "phase13_bh": bh}))
+                    "phase13_bh": bh, "phase14_whole": whole}))
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
@@ -3198,7 +3815,8 @@ def main():
         "replaces": "mustache_tpu/kernels/fused_ladder.py:104",
         "launches": launches,
         "max_abs_err": max([r["max_abs_err"] for r in report.values()]
-                           + [diff["max_abs_err_diff"],
+                           + [whole["chr1"]["first_batch"]["max_abs_err"],
+                              diff["max_abs_err_diff"],
                               sharding["max_abs_err_row_window"],
                               oct5["max_abs_err_diff_oct5"],
                               oct5["max_abs_err_row_window_oct5"]]),
@@ -3262,6 +3880,17 @@ def main():
            for key in ("ms", "plain_ms", "bound_ms")},
         "ms_full_block_b6_oct5": oct5["ms_full_block_b6_oct5"],
         "launches_oct6": 0,
+        **{f"{key}_chr1_1kb_b{whole['chr1']['batch']}":
+           whole["chr1"]["first_batch"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "share")},
+        **{f"launches_{c}_1kb": whole[c]["launches"] for c in whole},
+        **{f"batches_{c}_1kb": whole[c]["batches"] for c in whole},
+        **{f"ms_per_launch_{c}_1kb": whole[c].get("ms_per_launch")
+           for c in whole},
+        **{f"bound_ms_per_launch_{c}_1kb": whole_bound_ms(
+            CHR1_1KB if c == "chr1" else CHR21_1KB, whole[c]["blocks"])
+           / whole[c]["batches"] for c in whole},
+        "launches_cli_mcool_chr21_1kb": whole["chr21"]["cli_launches"],
         "ctas_per_sm": {k: r["ctas_per_sm"] for k, r in report.items()},
         "max_active_clusters": {k: r["max_clusters"]
                                 for k, r in report.items()},

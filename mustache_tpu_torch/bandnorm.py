@@ -13,7 +13,7 @@ grouped statistics exclude non-finite/zero entries).
 f32 precision: window sums run on globally-centered values (subtracting
 each diagonal's mean turns the cumulative sums into zero-drift random
 walks, so differencing them is stable), and the cumulative sums
-accumulate in f64 on every device (see _cumsum0). The port's tests hold
+accumulate in f64 on every device (see _RollingCumsum). The port's tests hold
 it to the JAX package at rtol 2e-4, atol 2e-4, the tolerance
 ``tests/test_bandnorm.py`` uses for the f32 band.
 
@@ -32,125 +32,216 @@ import numpy as np
 import torch
 
 
-def _cumsum0(a: torch.Tensor) -> torch.Tensor:
-    """Column cumsum with a leading zero row, cs[k] = sum(a[:k]),
-    accumulated and returned in float64. Window sums difference two
-    cumsums, so their rounding is the cumsum's: torch's CPU cumsum
-    accumulates f32 in double, its CUDA cumsum in f32, which moved
-    chr21-scale q values by ~7e-4 relative on the GPU. Asking for f64
-    makes both devices agree; callers cast the differences back."""
-    cs = torch.cumsum(a, dim=0, dtype=torch.float64)
-    return torch.cat([torch.zeros_like(cs[:1]), cs], 0)
+# a slab of the normalize is a sixteenth of the band's rows, at least
+# 2^22 cells (a small band goes in few slabs, so in few launches) and at
+# most 2^24 cells. A slab holds about 110 bytes a cell of temporaries
+# (the rolling f64 cumsums of its three sums over slab + F rows, the
+# window sums and the z-score's elementwise steps), so on a whole
+# chromosome at 1 kb (chr1: 273,904 x 2048 cells, 4.5 GB per band-sized
+# f64 array) the slabs stay under one f32 band, where the whole-band
+# form held about fifteen
+_SLAB_MIN_CELLS = 1 << 22
+_SLAB_CELLS = 1 << 24
 
 
-def _winsum_fast(a: torch.Tensor, F: int, rows: int) -> torch.Tensor:
-    """Column-wise moving-window sums, numpy-'same' centering, for columns
-    whose true length is >= F. Clamps are free: the cumulative sum is flat
-    wherever the data is zero-padded, and the low clamp lands on cs[0]=0."""
-    off = (F - 1) // 2
-    cs = _cumsum0(a)
-    # hi = cs[i + off + 1] for i in [0, rows): indices reach rows + off
-    hi_src = torch.cat([cs, cs[-1:].expand(off, cs.shape[1])], 0)
-    hi = hi_src[off + 1: off + 1 + rows]
-    # lo = cs[max(i + off - F + 1, 0)]: negative indices clamp to cs[0]=0
-    sh = off - F + 1  # <= 0
-    lo = torch.cat([cs.new_zeros((-sh, cs.shape[1])), cs[: rows + sh]], 0)
-    return (hi - lo).to(a.dtype)
+def slab_rows_for(rows: int, Dl: int) -> int:
+    """Rows of one normalize slab of a ``rows`` x ``Dl`` band."""
+    return max(1, min(max(rows // 16, _SLAB_MIN_CELLS // Dl),
+                      _SLAB_CELLS // Dl))
 
 
-def _winsum_indices(Dl: int, F: int, rows: int, n: int):
-    """Gather indices for the short-column regime: numpy's centering swap
-    (rows shorter than the window recentre at (len-1)//2) is a per-column
-    offset. Host numpy, computed once per call and shared by all three
-    window sums (same as the JAX module)."""
+class _RollingCumsum:
+    """Column cumsums ``cs[k] = sum(a[:k])`` in float64 over a sliding
+    range ``[base, top]`` of k. Window sums difference two cumsums, so
+    their rounding is the cumsum's: torch's CPU cumsum accumulates f32 in
+    double, its CUDA cumsum in f32, which moved chr21-scale q values by
+    ~7e-4 relative on the GPU; asking for f64 makes both devices agree.
+
+    :meth:`extend` scans the next rows on from the last cs row (a
+    carried row, so every column stays in each launch): both devices'
+    cumsums along dim 0 add one row at a time per column, so each cs row
+    is the same chain of additions as one scan of the whole band. The
+    columns may be stacked (``[rows, 3, Dl]``: the normalize's three
+    sums in one launch, whose time on the card goes with the rows it
+    walks, not with its columns)."""
+
+    def __init__(self, cols: tuple, device):
+        self.base = 0
+        self.cs = torch.zeros((1,) + cols, dtype=torch.float64,
+                              device=device)
+
+    @property
+    def top(self) -> int:
+        return self.base + self.cs.shape[0] - 1
+
+    def extend(self, rows: torch.Tensor):
+        """Append cs rows ``top + 1 .. top + len(rows)`` from the next
+        source rows: they are scanned in place in the new buffer, from
+        the carried row (which the scan adds to 0, unchanged)."""
+        k = self.cs.shape[0]
+        cs = self.cs.new_empty((k + rows.shape[0],) + self.cs.shape[1:])
+        cs[:k] = self.cs
+        cs[k:] = rows
+        cs[k - 1:].cumsum_(0)
+        self.cs = cs
+
+    def drop_below(self, k: int):
+        if k > self.base:
+            self.cs = self.cs[k - self.base:]
+            self.base = k
+
+    def rows(self, k0: int, n: int, kmax: int) -> torch.Tensor:
+        """``cs[clip(k0 + j, 0, kmax)]`` for ``j < n``: a view of the
+        kept rows, with the clipped rows at either end repeated (only
+        the first and last slabs clip)."""
+        lo = min(n, max(0, -k0))
+        hi = min(n - lo, max(0, k0 + n - 1 - kmax))
+        a = max(k0, 0) - self.base
+        mid = self.cs[a: a + n - lo - hi]
+        if not (lo or hi):
+            return mid
+        tail = self.cs.shape[1:]
+        parts = [mid]
+        if lo:                            # clipped to cs[0]: base is 0
+            parts.insert(0, self.cs[0].expand((lo,) + tail))
+        if hi:
+            parts.append(self.cs[kmax - self.base].expand((hi,) + tail))
+        return torch.cat(parts)
+
+    def gather(self, idx: torch.Tensor) -> torch.Tensor:
+        """``cs[idx]`` for per-cell indices ``idx`` ``[S, Dl]`` (the same
+        for every stacked sum)."""
+        shape = (idx.shape[0],) + self.cs.shape[1:]
+        return torch.gather(self.cs, 0, (idx - self.base).unsqueeze(-2)
+                            .expand(shape))
+
+
+def _winsum_indices(Dl: int, F: int, rows: int, n: int, r0: int, r1: int):
+    """cs indices ``(hi, lo)`` of the moving-window sums (numpy 'same'
+    centering) of output rows ``[r0, r1)``, for the short-column regime:
+    numpy's centering swap (rows shorter than the window recentre at
+    (len-1)//2) is a per-column offset, so the indices are ``[S, Dl]``
+    (the JAX module's gather indices, a slab of them)."""
     lend = np.clip(n - np.arange(Dl), 0, rows)
     offd = np.where(lend < F, (np.maximum(lend, 1) - 1) // 2, (F - 1) // 2)
-    i = np.arange(rows)[:, None]
-    hi_idx = np.clip(i + offd[None, :] + 1, 0, lend[None, :]).astype(np.int32)
-    lo_idx = np.clip(i + offd[None, :] - F + 1, 0,
-                     lend[None, :]).astype(np.int32)
+    i = np.arange(r0, r1)[:, None]
+    hi_idx = np.clip(i + offd[None, :] + 1, 0, lend[None, :])
+    lo_idx = np.clip(i + offd[None, :] - F + 1, 0, lend[None, :])
     return hi_idx, lo_idx
 
 
-def _winsum_general(a: torch.Tensor, hi_idx: torch.Tensor,
-                    lo_idx: torch.Tensor) -> torch.Tensor:
-    """Window sums via per-cell cumsum gather indices (int64 tensors on
-    ``a``'s device; short-column regime, see _winsum_indices)."""
-    cs = _cumsum0(a)
-    return (torch.gather(cs, 0, hi_idx)
-            - torch.gather(cs, 0, lo_idx)).to(a.dtype)
-
-
-def _column_stats(band: torch.Tensor, occ: torch.Tensor):
+def _column_stats(band: torch.Tensor):
     """Per-column mean/std over occupied cells of the raw band, with the
     host path's NaN guards (empty column -> mean 0, std 1), plus the
-    p-value weight vector 1 + log30(1 + mean)."""
-    cnt = occ.to(band.dtype).sum(0)
+    p-value weight vector 1 + log30(1 + mean). Whole-band reductions (a
+    slab's sums would add in another order); the squared deviations are
+    one band-sized temporary, made in place."""
+    occ = band != 0
+    # a count of ones in f32 is exact in any order below 2^24 rows
+    cnt = occ.sum(0, dtype=band.dtype)
     mean = band.sum(0) / cnt                             # NaN when empty
     mean = torch.where(torch.isfinite(mean), mean, 0.0)
-    var = torch.where(occ, (band - mean[None, :]) ** 2, 0.0).sum(0) / cnt
+    sq = band - mean[None, :]
+    sq *= sq
+    sq.masked_fill_(~occ, 0.0)
+    var = sq.sum(0) / cnt
+    del sq, occ
     std = torch.sqrt(var)
     std = torch.where(torch.isfinite(std), std, 1.0)
     weights = 1.0 + torch.log1p(mean) / math.log(30.0)
     return mean, std, weights
 
 
-def _normalize_band_local(band: torch.Tensor, *, n: int, F: int, Dv: int,
-                          rows: int, short_cols: bool):
+def _normalize_band_local(band: torch.Tensor, out: torch.Tensor, *, n: int,
+                          F: int, Dv: int, rows: int, short_cols: bool,
+                          slab_rows: int):
     """Local (windowed) regime: normalize.normalize_sparse's >2Mb branch
-    evaluated column-wise on the band."""
-    occ = band != 0
-    mean_g, std_g, weights = _column_stats(band, occ)
+    evaluated column-wise on the band, into ``out`` (which may be
+    ``band`` itself), ``slab_rows`` output rows at a time.
 
-    bandp = torch.where(occ, band + 0.001, 0.0)
+    The three window sums (occupancy, centered values, their squares,
+    stacked in one cumsum) of output rows ``[r0, r1)`` read cs rows
+    ``[r0 - F + 1, r1 + F//2]``, so each slab extends the rolling
+    cumsums by its rows and drops the rows
+    no later slab reads (the short-column regime's indices reach back to
+    short columns' ends, so it keeps them all: its bands are small). A
+    slab reads band rows from ``r0`` on only, so ``out`` may overwrite
+    the band behind it. Every value is the whole-band computation's, bit
+    for bit: elementwise ops per cell, whole-band column statistics, and
+    cumsums that add in the same order."""
+    mean_g, std_g, weights = _column_stats(band)
     mcol = mean_g + 0.001
-    bc = torch.where(occ, bandp - mcol[None, :], 0.0)
+    gs2 = (std_g * std_g)[None, :]
+    gm = mean_g[None, :]
+    Dl = band.shape[1]
+    dev = band.device
+    off = (F - 1) // 2
+    zcols = torch.arange(Dl, device=dev)[None, :] < Dv   # z-scored columns
 
-    if short_cols:
-        hi_idx, lo_idx = (torch.as_tensor(a, dtype=torch.int64,
-                                          device=band.device)
-                          for a in _winsum_indices(band.shape[1], F, rows, n))
+    def sources(rows_):
+        occ = rows_ != 0
+        bandp = torch.where(occ, rows_ + 0.001, 0.0)
+        bc = torch.where(occ, bandp - mcol[None, :], 0.0)
+        return occ, bandp, bc
 
-        def win(a):
-            return _winsum_general(a, hi_idx, lo_idx)
-    else:
-        def win(a):
-            return _winsum_fast(a, F, rows)
-    cnt = win(occ.to(band.dtype))
-    s1c = win(bc)
-    s2c = win(bc * bc)
+    # the three window sums' sources stacked [rows, 3, Dl]: occupancy,
+    # centred values, their squares
+    sums = _RollingCumsum((3, Dl), dev)
+    for r0 in range(0, rows, slab_rows):
+        r1 = min(r0 + slab_rows, rows)
+        # extend the cumsums to the slab's highest window end
+        k_hi = min(r1 + off, rows)
+        if k_hi > sums.top:
+            occ, _, bc = sources(band[sums.top:k_hi])
+            sums.extend(torch.stack([occ.to(band.dtype), bc, bc * bc], 1))
+        if short_cols:
+            hi, lo = (sums.gather(torch.as_tensor(ix, dtype=torch.int64,
+                                                  device=dev))
+                      for ix in _winsum_indices(Dl, F, rows, n, r0, r1))
+        else:
+            # hi = cs[min(i + off + 1, rows)], lo = cs[max(i + off - F + 1,
+            # 0)] (cs[0] = 0) for output rows i
+            hi = sums.rows(r0 + off + 1, r1 - r0, rows)
+            lo = sums.rows(r0 + off - F + 1, r1 - r0, rows)
+        cnt, s1c, s2c = (hi - lo).to(band.dtype).unbind(1)
+        del hi, lo
+        if not short_cols:
+            sums.drop_below(max(r1 + off - F + 1, 0))
 
-    # identical algebra to the host path's raw sums: with the global-mean
-    # centering, s2 - s1^2/cnt is invariant and lm = mcol + s1c/cnt
-    lm = mcol[None, :] + s1c / cnt
-    lv = (s2c - s1c * s1c / cnt) / (cnt - 1)
-    gs2 = (std_g * std_g)[None, :].expand_as(lv)
-    gm = mean_g[None, :].expand_as(lm)
-    lv = torch.where(torch.isfinite(lv), lv, gs2)
-    low = cnt < 30
-    lm = torch.where(low, gm, lm)
-    lv = torch.where(low, gs2, lv)
-    lm = torch.where(torch.isfinite(lm), lm, gm)
+        rows_ = band[r0:r1]
+        occ, bandp, _ = sources(rows_)
+        # identical algebra to the host path's raw sums: with the
+        # global-mean centering, s2 - s1^2/cnt is invariant and
+        # lm = mcol + s1c/cnt
+        lm = mcol[None, :] + s1c / cnt
+        lv = (s2c - s1c * s1c / cnt) / (cnt - 1)
+        lv = torch.where(torch.isfinite(lv), lv, gs2)
+        low = cnt < 30
+        lm = torch.where(low, gm, lm)
+        lv = torch.where(low, gs2, lv)
+        lm = torch.where(torch.isfinite(lm), lm, gm)
 
-    z = (bandp - lm) / torch.sqrt(lv)
-    z = torch.where(torch.isfinite(z), z, 0.0)
-    z = z * weights[None, :]
-
-    dcol = torch.arange(band.shape[1], device=band.device)[None, :]
-    out = torch.where(occ & (dcol < Dv), z, band)
+        z = (bandp - lm) / torch.sqrt(lv)
+        z = torch.where(torch.isfinite(z), z, 0.0)
+        z = z * weights[None, :]
+        out[r0:r1] = torch.where(occ & zcols, z, rows_)
     # host contract (normalize_sparse): one weight per diagonal d < Dv
     return out, weights[:Dv]
 
 
-def _normalize_band_global(band: torch.Tensor, *, dpx: int):
+def _normalize_band_global(band: torch.Tensor, out: torch.Tensor, *,
+                           dpx: int, slab_rows: int):
     """Global regime (small maps): plain per-diagonal z-score of the raw
-    values for d < dpx; other cells keep their raw values."""
-    occ = band != 0
-    mean_g, std_g, _ = _column_stats(band, occ)
-    z = (band - mean_g[None, :]) / std_g[None, :]
-    z = torch.where(torch.isfinite(z), z, 0.0)
-    dcol = torch.arange(band.shape[1], device=band.device)[None, :]
-    out = torch.where(occ & (dcol < dpx), z, band)
+    values for d < dpx; other cells keep their raw values. Into ``out``
+    (which may be ``band``), a slab of rows at a time."""
+    mean_g, std_g, _ = _column_stats(band)
+    zcols = torch.arange(band.shape[1], device=band.device)[None, :] < dpx
+    for r0 in range(0, band.shape[0], slab_rows):
+        rows_ = band[r0:r0 + slab_rows]
+        z = (rows_ - mean_g[None, :]) / std_g[None, :]
+        z = torch.where(torch.isfinite(z), z, 0.0)
+        out[r0:r0 + slab_rows] = torch.where((rows_ != 0) & zcols, z,
+                                             rows_)
     return out, band.new_zeros((0,))
 
 
@@ -250,14 +341,21 @@ def normalize_band_device(band_raw: torch.Tensor, n: int, resolution: int,
     (widened here), or [rows, Dl // 2] nibble-packed uint8 when
     ``packed4``. ``exceptions``: optional padded (rows, cols, f32 values)
     triple scattered over the widened band before normalizing (see
-    :func:`widen_with_exceptions`). Returns ``(band_norm, weights)`` on
-    the band's device; both are new tensors (the input is not modified).
+    :func:`widen_with_exceptions`). It runs :func:`slab_rows_for` rows
+    at a time; the values do not depend on the slab.
+    Returns ``(band_norm, weights)`` on the band's device; both are new
+    tensors (the input is not modified). The widened band, when it is a
+    new tensor, is normalized in place, so the device holds one f32 band
+    and a slab's temporaries beyond the raw band.
     """
     band = widen_with_exceptions(band_raw, exceptions, packed4)
     rows, Dl = band.shape
+    out = torch.empty_like(band) if band is band_raw else band
+    slab = slab_rows_for(rows, Dl)
     regime = _norm_regime(rows, Dl, n, resolution, distance_in_px)
     if regime[0] == "local":
         _, F, Dv, short_cols = regime
-        return _normalize_band_local(band, n=n if short_cols else rows, F=F,
-                                     Dv=Dv, rows=rows, short_cols=short_cols)
-    return _normalize_band_global(band, dpx=regime[1])
+        return _normalize_band_local(band, out, n=n if short_cols else rows,
+                                     F=F, Dv=Dv, rows=rows,
+                                     short_cols=short_cols, slab_rows=slab)
+    return _normalize_band_global(band, out, dpx=regime[1], slab_rows=slab)

@@ -199,8 +199,14 @@ def _row_cumsum(a: torch.Tensor) -> torch.Tensor:
     """Inclusive int32 prefix sums along the rows of ``a`` ``[B, L]``,
     exactly, as ONE scan of the flattened rows less each row's start: on
     the card a 1-D scan is one device-wide scan, while a scan along the
-    last dim of a few long rows gives each row one thread block."""
+    last dim of a few long rows gives each row one thread block.
+
+    The running count spans the whole batch, so it must stay below 2^31:
+    it is at most the batch's cells (marks) or ranks (histogram), B·N·Dl,
+    131 M at the batch rule's 16 blocks of 4000^2 with Dl 2048 (1 kb)."""
     B, L = a.shape
+    if B * L >= 2 ** 31:
+        raise ValueError(f"a [{B}, {L}] batch overflows the int32 prefix sum")
     flat = torch.cumsum(a.reshape(-1), 0, dtype=torch.int32).reshape(B, L)
     return flat - torch.cat([flat.new_zeros(1), flat[:-1, -1]])[:, None]
 
@@ -320,7 +326,8 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
     band_sigidx = torch.where(band_nz, band_sigidx, -1)
     cand_sigidx = take(band_sigidx, flat_idx)
 
-    # sparsity filter via per-column prefix sums of the band support
+    # sparsity filter via per-column prefix sums of the band support (each
+    # column's count is at most N, so int32 holds it)
     cs_flat = torch.cumsum(band_nz.to(torch.int32), -2,
                            dtype=torch.int32).reshape(B, M)
     s1 = torch.where(cand_sigidx >= 0,

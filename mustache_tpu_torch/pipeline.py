@@ -234,6 +234,21 @@ def _batch_size(cfg: DetectionConfig, nblocks: int, device: torch.device,
     return min(cap, nblocks)
 
 
+def block_bytes(route: str, n: int, Dl: int, itemsize: int) -> int:
+    """Device bytes one block of a batch holds at its peak, the batch
+    rule's unit (:func:`_batch_size`)."""
+    if route == "kernel":
+        # about 16 * n^2 bytes (the f32 dense block and its sentinel copy,
+        # the f32 support mask, the bool mask) plus about 64 * n * Dl
+        # bytes of band-sized epilogue state (count mode's f64 ranks,
+        # int64 scatter indices and int32 histogram, or sort mode's keys
+        # and int64 indices; ~20 [n, Dl] maps): 780 MB at 1 kb
+        return 16 * n * n + 64 * n * Dl
+    # the JAX package's XLA per-block size: ~45 n^2 live elements of the
+    # compute dtype through the ladder (mustache_tpu/pipeline.py:274-278)
+    return 45 * n * n * itemsize
+
+
 def fill_host_band(x, y, v, cfg: DetectionConfig, band_shape, n: int, *,
                    normalize: bool, exact: bool) -> np.ndarray:
     """The band of the host-normalize modes, in the compute dtype
@@ -274,14 +289,19 @@ def normalized_bands(x, y, v, cfg: DetectionConfig, band_shape, n: int,
     receives only its slab. Returns ``(one band per entry, the plan
     line's account of what went up)``."""
     mode = ("exact" if exact else "fast") if normalize else "off"
+    rf = torch.profiler.record_function
     if plan is None and normalize and not exact and cfg.precision == "float32":
-        upload = stream_band_to_device(x, y, v, band_shape, runner.devices[0])
-        exc = (None if upload.exceptions is None
-               else pad_exceptions(upload.exceptions, band_shape[0]))
-        bands = [normalize_band_device(raw, n, cfg.resolution,
-                                       cfg.distance_px, exceptions=exc,
-                                       packed4=upload.packed4)[0]
-                 for raw in runner.place_band(upload.band)]
+        with rf("pipeline.upload"):
+            upload = stream_band_to_device(x, y, v, band_shape,
+                                           runner.devices[0])
+            exc = (None if upload.exceptions is None
+                   else pad_exceptions(upload.exceptions, band_shape[0]))
+            raws = runner.place_band(upload.band)
+        with rf("pipeline.normalize"):
+            bands = [normalize_band_device(raw, n, cfg.resolution,
+                                           cfg.distance_px, exceptions=exc,
+                                           packed4=upload.packed4)[0]
+                     for raw in raws]
         return bands, upload.describe()
     host = fill_host_band(x, y, v, cfg, band_shape, n, normalize=normalize,
                           exact=exact)
@@ -347,19 +367,8 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
                                    normalize=normalize, exact=exact_normalize,
                                    plan=plan)
 
-    if route == "kernel":
-        # a block holds about 16 * n^2 bytes at its peak (the f32 dense
-        # block and its sentinel copy, the f32 support mask, the bool
-        # mask) plus about 64 * n * Dl bytes of band-sized epilogue state
-        # (count mode's f64 ranks, int64 scatter indices and int32
-        # histogram, or sort mode's keys and int64 indices; ~20 [n, Dl]
-        # maps)
-        per_block = 16 * width * width + 64 * width * band_shape[1]
-    else:
-        # the JAX package's XLA per-block size: ~45 n^2 live elements of
-        # the compute dtype through the ladder (mustache_tpu/pipeline.py:
-        # 274-278)
-        per_block = 45 * width * width * bands[0].element_size()
+    per_block = block_bytes(route, width, band_shape[1],
+                            bands[0].element_size())
     Bl = runner.local_batch(cfg, nblocks, per_block)
     if log is not None:
         log(f"n={n} blocks={nblocks} of {width}^2 batch={runner.nb * Bl} "
@@ -382,16 +391,17 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
     # the next batch runs on the device while this loop finishes a batch
     tagged: list[tuple[int, Loop]] = []
     for i, k, s, row in runner.pipelined(detectors, bands, launches):
-        block_out = _maybe_regrow(
-            unpack_block(spec, row), cfg,
-            lambda cap, k=k, s=s: rerun_block(k, s, cap))
-        rows = finish_block(block_out, block_index=i, start=start[i],
-                            cfg=cfg, spec=detectors[0].spec)
-        mask = masks[i]
-        for r in rows:
-            if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
-                tagged.append((i, Loop(int(r[0]), int(r[1]),
-                                       float(r[2]), float(r[3]))))
+        with torch.profiler.record_function("pipeline.finish"):
+            block_out = _maybe_regrow(
+                unpack_block(spec, row), cfg,
+                lambda cap, k=k, s=s: rerun_block(k, s, cap))
+            rows = finish_block(block_out, block_index=i, start=start[i],
+                                cfg=cfg, spec=detectors[0].spec)
+            mask = masks[i]
+            for r in rows:
+                if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
+                    tagged.append((i, Loop(int(r[0]), int(r[1]),
+                                           float(r[2]), float(r[3]))))
     tagged.sort(key=lambda t: t[0])
     return [lp for _, lp in tagged]
 

@@ -13,12 +13,16 @@ limit, then one line ``AB {json}``. Needs a CUDA card; imports nothing
 of JAX.
 
     python tools/entry_profile.py CHECKOUT LABEL [--bh count|sort]
+        [--whole --maps DIR]
 
 To hold a change against its parent on one card, unpack the parent into
 a git-ignored directory (``git archive``) and run, in one call, parent,
 change, change, parent, each in its own process. ``--bh`` sets
 ``MUSTACHE_TPU_BH`` before the package is imported (a checkout without
-the switch ignores it).
+the switch ignores it). ``--whole`` adds ``chip_smoke.py`` phase 14's
+whole chromosomes at 1 kb (chr21 and chr1; the workloads of this
+script's own checkout) with each call's peak device memory; their maps
+are made once and kept in ``--maps`` (``.npz``) for the later processes.
 """
 
 import argparse
@@ -66,12 +70,50 @@ def profile(fn, range_name):
                    for e in events))
 
 
+def whole_calls(maps_dir):
+    """chip_smoke.py phase 14's whole chromosomes at 1 kb as
+    ``{name: (call, config)}``, their maps loaded from ``maps_dir`` or
+    made there first."""
+    import importlib.util
+
+    import numpy as np
+
+    # this script's chip_smoke.py (the checkout's may predate phase 14);
+    # its configurations come from the checkout's package, imported first
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("phase14_specs", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    from mustache_tpu_torch import detect_loops_coo
+    from synthetic import synthetic_hic
+
+    os.makedirs(maps_dir, exist_ok=True)
+    calls = {}
+    for name, work in (("chr21_1kb", chip_smoke.CHR21_1KB),
+                       ("chr1_1kb", chip_smoke.CHR1_1KB)):
+        path = os.path.join(maps_dir, name + ".npz")
+        if not os.path.exists(path):
+            x, y, v, _ = synthetic_hic(*work[0], **work[1])
+            np.savez(path, x=x, y=y, v=v)
+        with np.load(path) as z:
+            coo = z["x"], z["y"], z["v"]
+        cfg = chip_smoke.whole_chrom_cfg(work)
+        calls[name] = ((lambda coo=coo, cfg=cfg: detect_loops_coo(*coo,
+                                                                  cfg)), cfg)
+    return calls
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkout")
     ap.add_argument("label")
     ap.add_argument("--bh", choices=("count", "sort"))
+    ap.add_argument("--whole", action="store_true")
+    ap.add_argument("--maps", default=None)
     args = ap.parse_args()
+    if args.whole and not args.maps:
+        ap.error("--whole needs --maps")
     if args.bh:
         os.environ["MUSTACHE_TPU_BH"] = args.bh
     root = os.path.abspath(args.checkout)
@@ -110,6 +152,9 @@ def main():
                                                cfg5.with_(pt2=0.1)),
                  "diff.epilogue"),
     }
+    if args.whole:
+        for name, (fn, cfg) in whole_calls(args.maps).items():
+            calls[name] = (fn, "detect.epilogue")
     out = {"label": args.label, "bh": args.bh or "default",
            "device": torch.cuda.get_device_name(0)}
     for name, (fn, range_name) in calls.items():
@@ -123,8 +168,14 @@ def main():
             walls.append(time.perf_counter() - t0)
             if again != rows:
                 sys.exit(f"{name}: a warm rerun gave other rows")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
         out[name] = dict(rows=len(rows), walls=walls,
-                         median=sorted(walls)[2],
+                         median=sorted(walls)[2], peak_bytes=peak,
                          **profile(fn, range_name))
     print("AB " + json.dumps(out), flush=True)
 

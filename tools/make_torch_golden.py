@@ -61,6 +61,21 @@ modes) and writes the reference-format TSV:
   inter, balanced and not) as sha256 digests
   (``chip_smoke.cool_digests``) to ``tests/data/torch_port_cool_expected.
   json``;
+* ``batches_f64_5kb``: a five-block map at 5 kb (``synthetic_hic(7700,
+  120, seed=141, n_loops=60, loop_strength=3.0)``, 600 kb: blocks of
+  2000^2) at ``precision="float64"``, sort-mode BH, under the JAX
+  package's test harness settings, to
+  ``tests/data/torch_port_batches_f64_5kb_golden.tsv``, read by
+  ``tests/test_torch_whole_chrom.py`` (the port in five pipelined batches
+  with a regrow);
+* ``chr21_1kb`` and ``chr1_1kb``: whole chromosomes at 1 kb, the 1 kb
+  slice's parameters over hg38 chr21 (``synthetic_hic(46710, 2000,
+  seed=1011, n_loops=580, loop_strength=3.0, density=0.95)``: 23 blocks
+  of 4000^2) and hg38 chr1 at a density falling away from the diagonal
+  (``synthetic_hic(248956, 2000, seed=1001, n_loops=3100,
+  loop_strength=3.0, density=0.9, density_decay=0.25)``: 124 blocks), in
+  sort-mode BH, to ``tests/data/torch_port_chr21_1kb_golden.tsv`` and
+  ``tests/data/torch_port_chr1_1kb_golden.tsv`` (chip_smoke.py phase 14);
 * ``rowaxis``: the 8 blocks of ``tests/test_sharding.py::
   test_sharded_equals_unsharded`` (256^2, d_px 64, seeds 40-47) through
   the JAX dense runner on a 4 x 2 ``(block, row)`` mesh of the harness's
@@ -113,6 +128,16 @@ SLICES = {
                      5000, "chr21", "sort"),
     "rowaxis": (None, None, 5000, None, "sort"),
     "cool_card": (None, None, 5000, None, None),
+    "batches_f64_5kb": ((7700, 120), dict(seed=141, n_loops=60,
+                                      loop_strength=3.0),
+                    5000, "chr2", "sort"),
+    "chr21_1kb": ((46710, 2000), dict(seed=1011, n_loops=580,
+                                      loop_strength=3.0, density=0.95),
+                  1000, "chr21", "sort"),
+    "chr1_1kb": ((248956, 2000), dict(seed=1001, n_loops=3100,
+                                      loop_strength=3.0, density=0.9,
+                                      density_decay=0.25),
+                 1000, "chr1", "sort"),
 }
 DIFF_SEED2 = 2022      # the diff leg's second condition (bench.py)
 OUT = {"5kb": os.path.join(ROOT, "tests", "data",
@@ -140,10 +165,18 @@ OUT = {"5kb": os.path.join(ROOT, "tests", "data",
        "rowaxis": os.path.join(ROOT, "tests", "data",
                                "torch_port_rowaxis_golden.json"),
        "cool_card": os.path.join(ROOT, "tests", "data",
-                                 "torch_port_cool_expected.json")}
+                                 "torch_port_cool_expected.json"),
+       "batches_f64_5kb": os.path.join(ROOT, "tests", "data",
+                                   "torch_port_batches_f64_5kb_golden.tsv"),
+       "chr21_1kb": os.path.join(ROOT, "tests", "data",
+                                 "torch_port_chr21_1kb_golden.tsv"),
+       "chr1_1kb": os.path.join(ROOT, "tests", "data",
+                                "torch_port_chr1_1kb_golden.tsv")}
+# slices whose distance filter is not 2 Mb
+DISTANCE_BP = {"batches_f64_5kb": 600_000}
 # slices run under the JAX package's test harness settings
 # (tests/conftest.py): x64 on and 8 virtual CPU devices
-HARNESS = ("cpu_f32", "rowshard_5kb", "rowaxis")
+HARNESS = ("cpu_f32", "rowshard_5kb", "rowaxis", "batches_f64_5kb")
 DIFF_HEADER = ("BIN1_CHR\tBIN1_START\tBIN1_END\tBIN2_CHROMOSOME\t"
                "BIN2_START\tBIN2_END\tFDR\tDETECTION_SCALE\tTAG\n")
 
@@ -434,7 +467,8 @@ def main():
         return
     x, y, v, _ = synthetic_hic(*shape, **kw)
     cfg = DetectionConfig(
-        resolution=res, distance_bp=2_000_000, pt=0.1, st=0.8, pt2=0.1,
+        resolution=res, distance_bp=DISTANCE_BP.get(args.slice, 2_000_000),
+        pt=0.1, st=0.8, pt2=0.1,
         precision="float64" if "f64" in args.slice else "float32",
         octaves=5 if args.slice == "oct5_5kb" else 2)
     if args.slice in ("diff5kb", "diff_f64_5kb"):
