@@ -77,13 +77,15 @@ class _RollingCumsum:
     def extend(self, rows: torch.Tensor):
         """Append cs rows ``top + 1 .. top + len(rows)`` from the next
         source rows: they are scanned in place in the new buffer, from
-        the carried row (which the scan adds to 0, unchanged)."""
-        k = self.cs.shape[0]
-        cs = self.cs.new_empty((k + rows.shape[0],) + self.cs.shape[1:])
-        cs[:k] = self.cs
-        cs[k:] = rows
-        cs[k - 1:].cumsum_(0)
-        self.cs = cs
+        the carried row (which the scan adds to 0, unchanged). One
+        ``bandnorm.cumsum`` profiler range."""
+        with torch.profiler.record_function("bandnorm.cumsum"):
+            k = self.cs.shape[0]
+            cs = self.cs.new_empty((k + rows.shape[0],) + self.cs.shape[1:])
+            cs[:k] = self.cs
+            cs[k:] = rows
+            cs[k - 1:].cumsum_(0)
+            self.cs = cs
 
     def drop_below(self, k: int):
         if k > self.base:

@@ -322,7 +322,8 @@ def _maybe_regrow_diff(block_out: dict, cfg: DetectionConfig,
     """If either condition's candidate table overflowed, rerun this block
     with a larger capacity (``mustache_tpu/diff.py:607-624``): the
     reference selects ALL pixels with q < pt (diff_mustache.py:458,473).
-    ``rerun``: callable ``(capacity) -> block_out``. Both BH modes report
+    ``rerun``: callable ``(capacity) -> block_out``, each call one
+    ``pipeline.regrow`` profiler range. Both BH modes report
     at least the cutoff k* on overflow (count mode ``max(k*, K+1)``,
     ``detect._bh_count``), so one rerun fits."""
     cap = cfg.max_candidates
@@ -332,7 +333,8 @@ def _maybe_regrow_diff(block_out: dict, cfg: DetectionConfig,
         if sig <= cap:
             return block_out
         cap = max(1 << (sig - 1).bit_length(), 2 * cap)
-        block_out = rerun(cap)
+        with torch.profiler.record_function("pipeline.regrow"):
+            block_out = rerun(cap)
 
 
 # ---------------------------------------------------------------------------
@@ -349,12 +351,13 @@ def _diff_bands(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig,
     (``pipeline.normalized_bands``; a row-shard ``plan`` gives each entry
     its slab pair). Returns ``(per condition its band per entry,
     descriptions, n)`` with ``n`` the larger bin count."""
-    d_px = cfg.distance_px
-    n1 = int(max(x1.max(), y1.max())) + 1
-    n2 = int(max(x2.max(), y2.max())) + 1
-    n = max(n1, n2)
-    width = cfg.chunk_size
-    shape = (bucket_rows(max(n, width)), band_width(width, d_px))
+    with torch.profiler.record_function("pipeline.prepare"):
+        d_px = cfg.distance_px
+        n1 = int(max(x1.max(), y1.max())) + 1
+        n2 = int(max(x2.max(), y2.max())) + 1
+        n = max(n1, n2)
+        width = cfg.chunk_size
+        shape = (bucket_rows(max(n, width)), band_width(width, d_px))
     bands, sent = zip(*(
         normalized_bands(x, y, v, cfg, shape, n_own, runner,
                          normalize=normalize, exact=exact, plan=plan)
@@ -383,58 +386,76 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
 
     Returns a list of ``(bin1, bin2, q, scale, tag)`` in block order with
     tag 1=loop1, 2=diffloop1, 3=loop2, 4=diffloop2
-    (diff_mustache.py:704-715)."""
-    route = resolve_route(cfg)
-    if runner is None:
-        runner = local_runner(device)
-    if len(v1) == 0 or len(v2) == 0:
-        return []
-    x1, y1, v1 = _as_coo(x1, y1, v1)
-    x2, y2, v2 = _as_coo(x2, y2, v2)
+    (diff_mustache.py:704-715).
 
-    d_px = cfg.distance_px
-    # always chunk x chunk, zero-padded (diff_mustache.py:671)
-    width = cfg.chunk_size
-    n = max(int(max(x.max(), y.max())) + 1 for x, y in ((x1, y1), (x2, y2)))
-    start, end = chunk_grid(n, width, d_px)
-    masks = block_mask_sizes(start, end, d_px)
-    nblocks = len(start)
-    dets = runner.per_device(
-        lambda d: build_diff_detector(cfg, width, device=d))
-    plan = (runner.plan_rowshard(start, width)
-            if runner.band_placement == "rowshard" else None)
+    The call is one ``diff.call`` profiler range holding the stages'
+    ranges as ``pipeline.detect_loops_coo``'s, with ``diff.finish`` in
+    place of ``pipeline.finish``."""
+    with torch.profiler.record_function("diff.call"):
+        return _detect_diff_loops_coo(
+            x1, y1, v1, x2, y2, v2, cfg, normalize=normalize,
+            exact_normalize=exact_normalize, runner=runner, device=device,
+            log=log)
+
+
+def _detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg, *, normalize,
+                           exact_normalize, runner, device, log):
+    rf = torch.profiler.record_function
+    with rf("pipeline.prepare"):
+        route = resolve_route(cfg)
+        if runner is None:
+            runner = local_runner(device)
+        if len(v1) == 0 or len(v2) == 0:
+            return []
+        x1, y1, v1 = _as_coo(x1, y1, v1)
+        x2, y2, v2 = _as_coo(x2, y2, v2)
+
+        d_px = cfg.distance_px
+        # always chunk x chunk, zero-padded (diff_mustache.py:671)
+        width = cfg.chunk_size
+        n = max(int(max(x.max(), y.max())) + 1
+                for x, y in ((x1, y1), (x2, y2)))
+        start, end = chunk_grid(n, width, d_px)
+        masks = block_mask_sizes(start, end, d_px)
+        nblocks = len(start)
+        dets = runner.per_device(
+            lambda d: build_diff_detector(cfg, width, device=d))
+        plan = (runner.plan_rowshard(start, width)
+                if runner.band_placement == "rowshard" else None)
     (bands1, bands2), sent, _ = _diff_bands(
         x1, y1, v1, x2, y2, v2, cfg, runner, normalize=normalize,
         exact=exact_normalize, plan=plan)
-    pairs = list(zip(bands1, bands2))
 
-    if route == "kernel":
-        # a block of the batch holds 28 * n^2 + 80 * n * Dl bytes at its
-        # peak: the stacked preamble (both conditions' widened slices,
-        # sentinel copies, supports), then the difference planes, which
-        # run on every real block of the batch at once (the dense
-        # difference, its padded copies, the vertical-pass slabs and the
-        # band blurs). tools/diff_batch_memory.py measured 191.7 MB a
-        # block at n=2000, Dl=512 (127.0 MB of it the planes) and
-        # 1079.0 MB at n=4000, Dl=2048 (769.5 MB), on an NVIDIA H100
-        # 80GB HBM3 at 700 W. The epilogue runs on the whole batch: two
-        # tables' state a block, counted at 128 * n * Dl bytes more (the
-        # single-map rule's 64 * n * Dl per table).
-        Dl = bands1[0].shape[1]
-        Bl = runner.local_batch(
-            cfg, nblocks, per_block=28 * width * width + 208 * width * Dl)
-    else:
-        # the JAX package's XLA cap for the triple ladder: ~135 n^2 live
-        # elements of the compute dtype per block (mustache_tpu/diff.py:
-        # 594-597)
-        Bl = runner.local_batch(
-            cfg, nblocks,
-            per_block=135 * width * width * bands1[0].element_size())
-    if log is not None:
-        log(f"n={n} blocks={nblocks} of {width}^2 batch={runner.nb * Bl} "
-            f"(stacked {2 * Bl} slots per entry) {describe_runner(runner)} "
-            f"route={route} precision={cfg.precision} "
-            + " ".join(f"cond{m} {d}" for m, d in zip((1, 2), sent)))
+    with rf("pipeline.prepare"):
+        pairs = list(zip(bands1, bands2))
+        if route == "kernel":
+            # a block of the batch holds 28 * n^2 + 80 * n * Dl bytes at
+            # its peak: the stacked preamble (both conditions' widened
+            # slices, sentinel copies, supports), then the difference
+            # planes, which run on every real block of the batch at once
+            # (the dense difference, its padded copies, the vertical-pass
+            # slabs and the band blurs). tools/diff_batch_memory.py
+            # measured 191.7 MB a block at n=2000, Dl=512 (127.0 MB of it
+            # the planes) and 1079.0 MB at n=4000, Dl=2048 (769.5 MB), on
+            # an NVIDIA H100 80GB HBM3 at 700 W. The epilogue runs on the
+            # whole batch: two tables' state a block, counted at 128 * n *
+            # Dl bytes more (the single-map rule's 64 * n * Dl per table).
+            Dl = bands1[0].shape[1]
+            Bl = runner.local_batch(
+                cfg, nblocks, per_block=28 * width * width + 208 * width * Dl)
+        else:
+            # the JAX package's XLA cap for the triple ladder: ~135 n^2
+            # live elements of the compute dtype per block
+            # (mustache_tpu/diff.py:594-597)
+            Bl = runner.local_batch(
+                cfg, nblocks,
+                per_block=135 * width * width * bands1[0].element_size())
+        if log is not None:
+            log(f"n={n} blocks={nblocks} of {width}^2 "
+                f"batch={runner.nb * Bl} (stacked {2 * Bl} slots per entry) "
+                f"{describe_runner(runner)} route={route} "
+                f"precision={cfg.precision} "
+                + " ".join(f"cond{m} {d}" for m, d in zip((1, 2), sent)))
 
     def rerun_block(k, s, cap):
         """Re-detect the block at local start ``s`` of entry k with a
@@ -451,17 +472,18 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
     # the next batch runs on the device while this loop finishes a batch
     tagged = []
     for i, k, s, row in runner.pipelined(dets, pairs, launches):
-        block_out = _maybe_regrow_diff(
-            unpack_block(dets[0].out_spec, row), cfg,
-            lambda cap, k=k, s=s: rerun_block(k, s, cap))
-        groups = finish_diff_block(block_out, start=start[i], cfg=cfg,
-                                   spec=dets[0].spec)
-        mask = masks[i]
-        for tag, group in zip((1, 2, 3, 4), groups):
-            for r in group:
-                if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
-                    tagged.append((i, (int(r[0]), int(r[1]), float(r[2]),
-                                       float(r[3]), tag)))
+        with rf("diff.finish"):
+            block_out = _maybe_regrow_diff(
+                unpack_block(dets[0].out_spec, row), cfg,
+                lambda cap, k=k, s=s: rerun_block(k, s, cap))
+            groups = finish_diff_block(block_out, start=start[i], cfg=cfg,
+                                       spec=dets[0].spec)
+            mask = masks[i]
+            for tag, group in zip((1, 2, 3, 4), groups):
+                for r in group:
+                    if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
+                        tagged.append((i, (int(r[0]), int(r[1]),
+                                           float(r[2]), float(r[3]), tag)))
     tagged.sort(key=lambda t: t[0])
     return [row for _, row in tagged]
 

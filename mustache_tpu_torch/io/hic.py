@@ -16,6 +16,11 @@ dedup, mustache.py:319-363, exists only to bound hicstraw's memory; the
 union of its windows is exactly the band, which is read directly) and
 divides counts by the requested normalization vector at both anchors, NaN
 factors propagating so such pixels drop at the positivity filter.
+
+Two profiler ranges split a chromosome's read: ``hic.decode`` (the native
+block decode) and ``hic.assemble`` (the anchors ordered, the norm
+vector's read and division and, in :func:`read_hic_file`, the band
+filter).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 from mustache_tpu_torch.io.chrom import normalize_chrom
 
@@ -369,9 +375,10 @@ class HicFile:
                     np.array([], np.float64))
         from mustache_tpu_torch.io import native
 
-        return native.decode_hic_blocks(
-            self.path, np.array([b.position for b in blocks], np.int64),
-            np.array([b.size for b in blocks], np.int32), self.version)
+        with torch.profiler.record_function("hic.decode"):
+            return native.decode_hic_blocks(
+                self.path, np.array([b.position for b in blocks], np.int64),
+                np.array([b.size for b in blocks], np.int32), self.version)
 
     def _decode_blocks_plain(self, blocks):
         """:meth:`_decode_blocks` in Python (``zlib`` and numpy): the
@@ -438,6 +445,17 @@ class HicFile:
         ``|x - y| <= distance_bins`` (records beyond it may still appear —
         the caller's distance filter stays authoritative)."""
         c = self.chrom_by_name(chrom)
+        x, y, v = self._chromosome_records(c, resolution, unit,
+                                           distance_bins)
+        if len(v) == 0:
+            return x, y, v
+        with torch.profiler.record_function("hic.assemble"):
+            return self._assemble(chrom, c, x, y, v, resolution, norm, unit)
+
+    def _chromosome_records(self, c: HicChromosome, resolution: int,
+                            unit: str, distance_bins: float | None):
+        """The decoded records of c x c as stored (x, y unordered), from
+        the blocks that can meet the band when ``distance_bins`` is set."""
         zoom = self._matrix_zoom(c.index, c.index, unit, resolution)
         if zoom is None:
             return (np.array([], np.int64), np.array([], np.int64),
@@ -446,12 +464,14 @@ class HicFile:
         if distance_bins is not None:
             blocks = cull_band_blocks(blocks, zoom, self.version,
                                       distance_bins)
-        x, y, v = self._decode_blocks(blocks)
-        if len(v) == 0:
-            return (np.array([], np.int64), np.array([], np.int64),
-                    np.array([], np.float64))
-        x, y = np.minimum(x, y), np.maximum(x, y)
+        return self._decode_blocks(blocks)
 
+    def _assemble(self, chrom: str, c: HicChromosome, x, y, v,
+                  resolution: int, norm, unit: str):
+        """Decoded records of ``chrom`` as ``x <= y`` triplets, divided by
+        the ``norm`` vector at both anchors unless ``norm`` is false or
+        ``"NONE"``."""
+        x, y = np.minimum(x, y), np.maximum(x, y)
         if norm and norm != "NONE":
             nv = self.norm_vector(str(norm), c.index, unit, resolution)
             if nv is None:
@@ -482,20 +502,23 @@ def read_hic_file(path: str, norm_method, chrm_size, distance_bp: int,
             v[np.isnan(v)] = 0
             keep = v > 0
             return x[keep], y[keep], v[keep]
-        x, y, v = hic.fetch_chromosome(chr1, res, norm=norm,
-                                       distance_bins=distance_bp / res)
+        c = hic.chrom_by_name(chr1)
+        x, y, v = hic._chromosome_records(c, res, "BP", distance_bp / res)
+        if len(v) == 0:
+            print(f"There is no contact in chrmosome {chr1} to work on.")
+            return [], [], []
+        with torch.profiler.record_function("hic.assemble"):
+            x, y, v = hic._assemble(chr1, c, x, y, v, res, norm, "BP")
+            # the reference zeroes only NaN here (mustache.py:384); +/-inf
+            # values (e.g. from a zero normalization factor) survive to
+            # the val>0 filter
+            v[np.isnan(v)] = 0
+            keep = (np.abs(x - y) <= distance_bp / res) & (v > 0)
+            x, y, v = x[keep], y[keep], v[keep]
     finally:
         # close on error paths too: the CLI's ingest retries reopen the
         # file per attempt, so a leak per raise accumulates descriptors
         hic.close()
-    if len(v) == 0:
-        print(f"There is no contact in chrmosome {chr1} to work on.")
-        return [], [], []
-    # the reference zeroes only NaN here (mustache.py:384); +/-inf values
-    # (e.g. from a zero normalization factor) survive to the val>0 filter
-    v[np.isnan(v)] = 0
-    keep = (np.abs(x - y) <= distance_bp / res) & (v > 0)
-    x, y, v = x[keep], y[keep], v[keep]
     if len(v) == 0:
         print(f"There is no contact in chrmosome {chr1} to work on.")
         return [], [], []

@@ -66,21 +66,23 @@ def fill_raw_band(x, y, v, band_shape) -> np.ndarray:
     native fill: a uint16 band when every value is an integer count below
     2^16 (widened losslessly on the device, bandnorm.widen_band), else an
     f32 band (``mustache_tpu/pipeline.py:55-77``)."""
-    if native.values_fit_u16(v):
-        band = np.zeros(band_shape, np.uint16)
-        native.fill_band_u16(x, y, v, band)
-    else:
-        band = np.zeros(band_shape, np.float32)
-        native.fill_band(x, y, v, band)
+    with torch.profiler.record_function("upload.fill"):
+        if native.values_fit_u16(v):
+            band = np.zeros(band_shape, np.uint16)
+            native.fill_band_u16(x, y, v, band)
+        else:
+            band = np.zeros(band_shape, np.float32)
+            native.fill_band(x, y, v, band)
     return band
 
 
 def upload_band(band: np.ndarray, device: torch.device) -> torch.Tensor:
     """One H2D of the host band, staged through pinned memory on CUDA."""
-    t = torch.from_numpy(band)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    with torch.profiler.record_function("upload.stage"):
+        t = torch.from_numpy(band)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
 
 
 # uint4 packing pays a host census and pack plus a larger exception
@@ -106,10 +108,14 @@ def fill_raw_band_compact(x, y, v, band_shape, counts=None):
     Returns ``(band, exceptions, packed4)``; ``exceptions`` is None or an
     unpadded (rows, cols, values) triple. Requires unique (x, y) pairs
     (the ingest-path invariant)."""
+    rf = torch.profiler.record_function
     rows, Dl = band_shape
     if not len(v):
         return fill_raw_band(x, y, v, band_shape), None, False
-    ne8, ne16 = native.classify_values(v) if counts is None else counts
+    if counts is None:
+        with rf("upload.census"):
+            counts = native.classify_values(v)
+    ne8, ne16 = counts
     bytes8 = rows * Dl + ne8 * EXC_BYTES
     bytes16 = 2 * rows * Dl + ne16 * EXC_BYTES
     if min(bytes8, bytes16) >= 4 * rows * Dl:
@@ -118,16 +124,18 @@ def fill_raw_band_compact(x, y, v, band_shape, counts=None):
     # band is large enough for the halved bytes to pay
     ne4 = bytes4 = None
     if (Dl % 2 == 0 and bytes8 <= bytes16 and rows * Dl >= _U4_MIN_BYTES):
-        ne4 = native.classify_values4(v)
+        with rf("upload.census"):
+            ne4 = native.classify_values4(v)
         bytes4 = rows * Dl // 2 + ne4 * EXC_BYTES
     dtype, ne = (np.uint8, ne8) if bytes8 <= bytes16 else (np.uint16, ne16)
-    band = np.zeros(band_shape, dtype)
-    exc = native.fill_band_compact(x, y, v, band, ne + 16)
-    if bytes4 is not None and bytes4 < 0.7 * bytes8:
-        band, big = native.pack_band4(band, ne4 + 16)
-        exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
-        return band, (exc if len(exc[0]) else None), True
-    return band, (exc if len(exc[0]) else None), False
+    packed4 = bytes4 is not None and bytes4 < 0.7 * bytes8
+    with rf("upload.fill"):
+        band = np.zeros(band_shape, dtype)
+        exc = native.fill_band_compact(x, y, v, band, ne + 16)
+        if packed4:
+            band, big = native.pack_band4(band, ne4 + 16)
+            exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
+    return band, (exc if len(exc[0]) else None), packed4
 
 
 @dataclasses.dataclass
@@ -168,11 +176,18 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
     175-253``): for a large u8/u4 band, fill row slab k+1 on the host
     while slab k's pinned, non-blocking H2D is in flight. The slabs land
     in one preallocated device band, so nothing is concatenated. Other
-    bands take the one-shot :func:`fill_raw_band_compact` and one H2D."""
+    bands take the one-shot :func:`fill_raw_band_compact` and one H2D.
+    Its stages are profiler ranges: ``upload.census`` (the value census),
+    ``upload.fill`` (the host band's fill, u4 pack and exceptions) and
+    ``upload.stage`` (pinning and the H2D enqueue)."""
+    rf = torch.profiler.record_function
     rows, Dl = band_shape
     streamable = (len(v) >= (1 << 20) and rows >= 4096
                   and rows * Dl >= 8_000_000)
-    counts = native.classify_values(v) if len(v) else None
+    counts = None
+    if len(v):
+        with rf("upload.census"):
+            counts = native.classify_values(v)
     if streamable:
         ne8, ne16 = counts
         bytes8 = rows * Dl + ne8 * EXC_BYTES
@@ -184,7 +199,10 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
         band, exc, p4 = fill_raw_band_compact(x, y, v, band_shape, counts)
         return BandUpload(upload_band(band, device), exc, p4, 1)
 
-    ne4 = native.classify_values4(v) if Dl % 2 == 0 else None
+    ne4 = None
+    if Dl % 2 == 0:
+        with rf("upload.census"):
+            ne4 = native.classify_values4(v)
     p4 = ne4 is not None and rows * Dl // 2 + ne4 * EXC_BYTES < 0.7 * bytes8
     pin = device.type == "cuda"
     width = Dl // 2 if p4 else Dl
@@ -196,23 +214,26 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
     staged, excs = [], []
     for g0 in range(0, rows, per):
         g1 = min(g0 + per, rows)
-        slab = torch.zeros((g1 - g0, Dl), dtype=torch.uint8,
-                           pin_memory=pin and not p4)
-        exc = native.fill_band_compact_range(x, y, v, slab.numpy(), g0, g1,
-                                             ne8 + 16)
-        if p4:
-            packed = torch.empty((g1 - g0, width), dtype=torch.uint8,
-                                 pin_memory=pin)
-            _, big = native.pack_band4(slab.numpy(), ne4 + 16,
-                                       out=packed.numpy())
-            big = (big[0] + np.int32(g0), big[1], big[2])
-            exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
-            slab = packed
+        with rf("upload.fill"):
+            slab = torch.zeros((g1 - g0, Dl), dtype=torch.uint8,
+                               pin_memory=pin and not p4)
+            exc = native.fill_band_compact_range(x, y, v, slab.numpy(), g0,
+                                                 g1, ne8 + 16)
+            if p4:
+                packed = torch.empty((g1 - g0, width), dtype=torch.uint8,
+                                     pin_memory=pin)
+                _, big = native.pack_band4(slab.numpy(), ne4 + 16,
+                                           out=packed.numpy())
+                big = (big[0] + np.int32(g0), big[1], big[2])
+                exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
+                slab = packed
         excs.append(exc)
         # async on CUDA: the next slab fills while this one is in flight
-        band_dev[g0:g1].copy_(slab, non_blocking=pin)
+        with rf("upload.stage"):
+            band_dev[g0:g1].copy_(slab, non_blocking=pin)
         staged.append(slab)
-    exc = tuple(np.concatenate([e[i] for e in excs]) for i in range(3))
+    with rf("upload.fill"):
+        exc = tuple(np.concatenate([e[i] for e in excs]) for i in range(3))
     return BandUpload(band_dev, exc if len(exc[0]) else None, p4,
                       len(staged))
 
@@ -294,9 +315,10 @@ def normalized_bands(x, y, v, cfg: DetectionConfig, band_shape, n: int,
         with rf("pipeline.upload"):
             upload = stream_band_to_device(x, y, v, band_shape,
                                            runner.devices[0])
-            exc = (None if upload.exceptions is None
-                   else pad_exceptions(upload.exceptions, band_shape[0]))
-            raws = runner.place_band(upload.band)
+            with rf("upload.stage"):
+                exc = (None if upload.exceptions is None
+                       else pad_exceptions(upload.exceptions, band_shape[0]))
+                raws = runner.place_band(upload.band)
         with rf("pipeline.normalize"):
             bands = [normalize_band_device(raw, n, cfg.resolution,
                                            cfg.distance_px, exceptions=exc,
@@ -338,42 +360,60 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
     row-shard placement normalizes on the host. ``normalize=False``
     detects on the raw values; ``exact_normalize`` takes the reference's
     summation order in the host normalize. ``x``, ``y``, ``v`` are not
-    modified. ``log``: optional callable taking one message string."""
-    route = resolve_route(cfg)
-    if runner is None:
-        runner = local_runner(device)
-    if len(v) == 0:
-        return []
-    x = np.ascontiguousarray(x, dtype=np.int64)
-    y = np.ascontiguousarray(y, dtype=np.int64)
-    v = np.ascontiguousarray(v, dtype=np.float64)
+    modified. ``log``: optional callable taking one message string.
 
-    d_px = cfg.distance_px
-    n = int(max(x.max(), y.max())) + 1
-    # blocks are ALWAYS chunk x chunk: when n <= chunk the reference still
-    # densifies into a chunk x chunk zero-padded matrix (mustache.py:923)
-    width = cfg.chunk_size
-    start, end = chunk_grid(n, width, d_px)
-    masks = block_mask_sizes(start, end, d_px)
-    nblocks = len(start)
-    detectors = runner.per_device(
-        lambda d: build_detector(cfg, width, device=d))
+    The call is one ``pipeline.call`` profiler range; its stages are
+    ranges inside it: ``pipeline.prepare`` (twice: up to the band, and
+    the batch size after it), ``pipeline.upload``, ``pipeline.normalize``,
+    ``mesh.launch`` and ``mesh.collect`` per batch, ``pipeline.finish``
+    per block (with a ``pipeline.regrow`` per rerun)."""
+    with torch.profiler.record_function("pipeline.call"):
+        return _detect_loops_coo(x, y, v, cfg, normalize=normalize,
+                                 exact_normalize=exact_normalize,
+                                 runner=runner, device=device, log=log)
 
-    # rows ride the JAX package's bucket ladder (pad rows are inert)
-    band_shape = (bucket_rows(max(n, width)), band_width(width, d_px))
-    plan = (runner.plan_rowshard(start, width)
-            if runner.band_placement == "rowshard" else None)
+
+def _detect_loops_coo(x, y, v, cfg, *, normalize, exact_normalize, runner,
+                      device, log):
+    rf = torch.profiler.record_function
+    with rf("pipeline.prepare"):
+        route = resolve_route(cfg)
+        if runner is None:
+            runner = local_runner(device)
+        if len(v) == 0:
+            return []
+        x = np.ascontiguousarray(x, dtype=np.int64)
+        y = np.ascontiguousarray(y, dtype=np.int64)
+        v = np.ascontiguousarray(v, dtype=np.float64)
+
+        d_px = cfg.distance_px
+        n = int(max(x.max(), y.max())) + 1
+        # blocks are ALWAYS chunk x chunk: when n <= chunk the reference
+        # still densifies into a chunk x chunk zero-padded matrix
+        # (mustache.py:923)
+        width = cfg.chunk_size
+        start, end = chunk_grid(n, width, d_px)
+        masks = block_mask_sizes(start, end, d_px)
+        nblocks = len(start)
+        detectors = runner.per_device(
+            lambda d: build_detector(cfg, width, device=d))
+
+        # rows ride the JAX package's bucket ladder (pad rows are inert)
+        band_shape = (bucket_rows(max(n, width)), band_width(width, d_px))
+        plan = (runner.plan_rowshard(start, width)
+                if runner.band_placement == "rowshard" else None)
     bands, sent = normalized_bands(x, y, v, cfg, band_shape, n, runner,
                                    normalize=normalize, exact=exact_normalize,
                                    plan=plan)
 
-    per_block = block_bytes(route, width, band_shape[1],
-                            bands[0].element_size())
-    Bl = runner.local_batch(cfg, nblocks, per_block)
-    if log is not None:
-        log(f"n={n} blocks={nblocks} of {width}^2 batch={runner.nb * Bl} "
-            f"{describe_runner(runner)} route={route} "
-            f"precision={cfg.precision} {sent}")
+    with rf("pipeline.prepare"):
+        per_block = block_bytes(route, width, band_shape[1],
+                                bands[0].element_size())
+        Bl = runner.local_batch(cfg, nblocks, per_block)
+        if log is not None:
+            log(f"n={n} blocks={nblocks} of {width}^2 "
+                f"batch={runner.nb * Bl} {describe_runner(runner)} "
+                f"route={route} precision={cfg.precision} {sent}")
 
     def rerun_block(k, s, cap):
         """Re-detect the block at local start ``s`` of entry k with a
@@ -391,7 +431,7 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
     # the next batch runs on the device while this loop finishes a batch
     tagged: list[tuple[int, Loop]] = []
     for i, k, s, row in runner.pipelined(detectors, bands, launches):
-        with torch.profiler.record_function("pipeline.finish"):
+        with rf("pipeline.finish"):
             block_out = _maybe_regrow(
                 unpack_block(spec, row), cfg,
                 lambda cap, k=k, s=s: rerun_block(k, s, cap))
@@ -409,18 +449,20 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
 def _maybe_regrow(block_out: dict, cfg: DetectionConfig, rerun) -> dict:
     """If the candidate table overflowed (more pixels below the q threshold
     than capacity), rerun this single block with a larger capacity.
-    ``rerun``: callable ``(capacity) -> block_out``. Sort-mode BH reports
-    the exact sig_count; on overflow count-mode BH reports ``max(k*,
-    K+1)`` with the exact cutoff k* (``detect._bh_count``), so in either
-    mode one rerun fits. The loop is kept from the JAX package, whose
-    count mode reports a lower bound."""
+    ``rerun``: callable ``(capacity) -> block_out``, each call one
+    ``pipeline.regrow`` profiler range. Sort-mode BH reports the exact
+    sig_count; on overflow count-mode BH reports ``max(k*, K+1)`` with the
+    exact cutoff k* (``detect._bh_count``), so in either mode one rerun
+    fits. The loop is kept from the JAX package, whose count mode reports
+    a lower bound."""
     cap = cfg.max_candidates
     while True:
         sig = int(block_out["sig_count"])
         if sig <= cap:
             return block_out
         cap = max(1 << (sig - 1).bit_length(), 2 * cap)
-        block_out = rerun(cap)
+        with torch.profiler.record_function("pipeline.regrow"):
+            block_out = rerun(cap)
 
 
 def write_loops(path: str, per_chrom: Iterable[tuple[str, str, int, Sequence[Loop]]]):

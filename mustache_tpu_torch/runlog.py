@@ -1,10 +1,12 @@
-"""Observability: structured per-phase logging and counters.
+"""Observability: structured per-phase logging.
 
 The reference's only instrumentation is wall-clock prints per chromosome
 (mustache.py:1086-1094) and an unused ``-v`` flag. This module provides a
-structured event log (JSON lines or human-readable), per-phase timings via
-context managers, and the throughput counters the benchmarks report
-(genome Mb/s, blocks/s). Each phase is also a
+structured event log (JSON lines with ``--engine-json-log``, else
+human-readable) and per-phase timings via context managers; the CLIs log
+their phases, plans and a per-chromosome ``throughput`` event (genome
+Mb/s of the detect phase) through it. Of these the benchmark reads only
+the CLI's ``ingest`` phase. Each phase is also a
 ``torch.profiler.record_function`` range, so it shows up named in the
 trace ``--engine-profile-dir`` writes.
 
@@ -56,13 +58,6 @@ class RunLog:
                 yield
         finally:
             self.event(name, seconds=round(time.time() - t0, 3), **fields)
-
-    def summary(self) -> dict[str, float]:
-        out: dict[str, float] = {}
-        for e in self.events:
-            if "seconds" in e:
-                out[e["event"]] = out.get(e["event"], 0.0) + e["seconds"]
-        return out
 
 
 NULL_LOG = RunLog(quiet=True)

@@ -312,35 +312,40 @@ class MeshRunner:
         (pad slots are dropped, an entry without real slots is skipped),
         then queues the packed buffer's copy to pinned host memory and
         records an event after it (on the CPU the buffer is the host
-        copy). Nothing waits for the device; :meth:`collect` does."""
+        copy). Nothing waits for the device; :meth:`collect` does. One
+        ``mesh.launch`` profiler range."""
         Bl = starts_local.shape[1]
         pending = []
-        for k, dev in enumerate(self.devices):
-            slots = [j for j in range(Bl) if starts_local[k, j] >= 0]
-            if not slots:
-                continue
-            local = [int(starts_local[k, j]) for j in slots]
-            band = bands[k] if isinstance(bands[k], tuple) else (bands[k],)
-            before = fused_ladder.LAUNCHES
-            with _on(dev):
-                out = detectors[k].fn_band_packed(*band, local)
-                host, done = _to_host(out)
-            self.launches[k * self.nr] += fused_ladder.LAUNCHES - before
-            pending.append((k, slots, local, host, done))
+        with torch.profiler.record_function("mesh.launch"):
+            for k, dev in enumerate(self.devices):
+                slots = [j for j in range(Bl) if starts_local[k, j] >= 0]
+                if not slots:
+                    continue
+                local = [int(starts_local[k, j]) for j in slots]
+                band = (bands[k] if isinstance(bands[k], tuple)
+                        else (bands[k],))
+                before = fused_ladder.LAUNCHES
+                with _on(dev):
+                    out = detectors[k].fn_band_packed(*band, local)
+                    host, done = _to_host(out)
+                self.launches[k * self.nr] += fused_ladder.LAUNCHES - before
+                pending.append((k, slots, local, host, done))
         return idxs, Bl, pending
 
     @staticmethod
     def collect(launched):
         """Wait for a :meth:`launch`'s copies; returns ``[(global index,
-        entry, local start, packed row)]``, entry-major."""
+        entry, local start, packed row)]``, entry-major. One
+        ``mesh.collect`` profiler range."""
         idxs, Bl, pending = launched
         rows = []
-        for k, slots, local, host, done in pending:
-            if done is not None:
-                done.synchronize()
-            host = host.numpy()
-            for pos, (j, s) in enumerate(zip(slots, local)):
-                rows.append((idxs[k * Bl + j], k, s, host[pos]))
+        with torch.profiler.record_function("mesh.collect"):
+            for k, slots, local, host, done in pending:
+                if done is not None:
+                    done.synchronize()
+                host = host.numpy()
+                for pos, (j, s) in enumerate(zip(slots, local)):
+                    rows.append((idxs[k * Bl + j], k, s, host[pos]))
         return rows
 
     def pipelined(self, detectors, bands, launches):
