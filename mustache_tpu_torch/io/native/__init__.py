@@ -3,8 +3,9 @@
 
 Torch port of ``mustache_tpu/io/native/__init__.py`` (bindings at :50-70,
 :189-218, :221-247 and :250-424). ``band_fill.cpp``, ``normalize.cpp``
-and ``hic_decode.cpp`` (copies of the JAX package's functions; the
-decoder links zlib) are compiled with g++ at first use into the port's
+and ``hic_decode.cpp`` (copies of the JAX package's functions but for
+the compact fills' row-range walk and census, ``band_fill.cpp``'s header;
+the decoder links zlib) are compiled with g++ at first use into the port's
 build cache (``kernels/build.py``, keyed by a hash of the source); a
 failed build raises, and nothing here falls back to numpy or Python's
 ``zlib`` (``available`` only says whether a compiler is found). Argument dtypes and
@@ -47,7 +48,9 @@ _P, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 
 
 def bind(lib) -> None:
-    """ctypes signatures of the band entry points (as the JAX bindings)."""
+    """ctypes signatures of the band entry points (as the JAX bindings;
+    the compact fills take a ``scan`` flag, and the one-shot one a
+    census buffer and a handle to hold its exceptions in, beside)."""
     sigs = {
         "mtpu_fill_band": [_P, _P, _i32, _P, _i32, _i64, _F32, _i64, _i64,
                            _i32],
@@ -56,18 +59,21 @@ def bind(lib) -> None:
         "mtpu_values_fit_u16": [_F64, _i64, _i32],
         "mtpu_classify_values": [_F64, _i64, _i32, _I64],
         "mtpu_fill_band_compact": [_P, _P, _i32, _F64, _i64, _P, _i32, _i64,
-                                   _i64, _I32, _I32, _F32, _i64, _i32],
+                                   _i64, _I32, _I32, _F32, _i64, _i32, _i32,
+                                   _P, _P],
         "mtpu_classify_values4": [_F64, _i64, _i32, _I64],
         "mtpu_pack_band4": [_U8, _i64, _i64, _U8, _I32, _I32, _F32, _i64,
                             _i32],
         "mtpu_fill_band_compact_range": [_P, _P, _i32, _F64, _i64, _P, _i32,
                                          _i64, _i64, _i64, _I32, _I32, _F32,
-                                         _i64, _i32],
+                                         _i64, _i32, _i32],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
+    lib.mtpu_take_exceptions.restype = None
+    lib.mtpu_take_exceptions.argtypes = [_P, _P, _P, _P]
 
 
 def library():
@@ -287,44 +293,105 @@ def _exc_buffers(cap: int):
             np.empty(cap, np.float32), cap)
 
 
-def fill_band_compact(x, y, v, band_out, exc_cap, n_threads=N_THREADS):
+UNSORTED = -2    # the compact fills' code for a COO not sorted by row
+
+
+def _walkable(x, y) -> bool:
+    """Whether the compact fills' row-range walk reads ``x`` and ``y`` as
+    given: both int32 or both int64. Others are copied to int64 by
+    :func:`_xy` and filled by the full scan."""
+    dx, dy = np.asarray(x).dtype, np.asarray(y).dtype
+    return dx == dy and dx in (np.int32, np.int64)
+
+
+def fill_band_compact(x, y, v, band_out, exc_cap, n_threads=N_THREADS,
+                      scan=False):
     """Narrow-band fill with an exception list: integer-fitting values land
     in ``band_out`` (uint8 or uint16), misfits come back as ``(rows, cols,
     f32 values)``, trimmed to their count (order across threads is not
     fixed). Requires unique (x, y) pairs. Raises when more than
-    ``exc_cap`` misfits turn up."""
-    x, y = _xy(x, y)
-    v = _f64(v)
+    ``exc_cap`` misfits turn up.
+
+    Each thread walks only its own rows' entries, found by binary search
+    on ``x``, so the COO has to be sorted by row: where it is not, or
+    where ``x`` and ``y`` are not both int32 or both int64, None comes
+    back and ``band_out`` is as it was, or zeroed where the disorder
+    showed only during the walk. ``scan=True`` fills any COO, each thread
+    reading every entry."""
     _out(band_out, (np.uint8, np.uint16))
-    er, ec, ev, cap = _exc_buffers(exc_cap)
-    _count_fill()
-    n = _check(library().mtpu_fill_band_compact(
-        _ptr(x), _ptr(y), int(x.dtype == np.int64), v, len(v),
-        _ptr(band_out), int(band_out.dtype == np.uint16), band_out.shape[0],
-        band_out.shape[1], er, ec, ev, cap, int(n_threads)),
-        "fill_band_compact (exception capacity overflow)")
-    return er[:n], ec[:n], ev[:n]
+    if not (scan or _walkable(x, y)):
+        return None
+    return _trimmed("fill_band_compact", *_compact(
+        "mtpu_fill_band_compact", x, y, v, band_out, (band_out.shape[0],),
+        exc_cap, n_threads, scan, None, None))
 
 
 def fill_band_compact_range(x, y, v, slab, g0, g1, exc_cap,
-                            n_threads=N_THREADS):
+                            n_threads=N_THREADS, scan=False):
     """Row-windowed compact fill for the streamed upload: fill only global
     rows [g0, g1) into ``slab`` (whose row 0 is global row g0). Exception
-    rows come back as global indices."""
-    x, y = _xy(x, y)
-    v = _f64(v)
+    rows come back as global indices. None and ``scan`` as in
+    :func:`fill_band_compact`; the walk also reads the other rows' ``x``
+    once, for their order."""
     _out(slab, (np.uint8, np.uint16))
     if not 0 <= g0 <= g1 or g1 - g0 != slab.shape[0]:
         raise ValueError(f"rows [{g0}, {g1}) do not match a slab of "
                          f"{slab.shape[0]} rows")
+    if not (scan or _walkable(x, y)):
+        return None
+    return _trimmed("fill_band_compact_range", *_compact(
+        "mtpu_fill_band_compact_range", x, y, v, slab, (int(g0), int(g1)),
+        exc_cap, n_threads, scan))
+
+
+def fill_band_u8_census(x, y, v, band_out, n_threads=N_THREADS):
+    """:func:`fill_band_compact` into a uint8 ``band_out`` and
+    :func:`classify_values`' census of every value, in one pass over a COO
+    sorted by row: ``(exceptions, (misfit_u8, misfit_u16))``, with every
+    exception (no capacity: the pass holds them, and they are copied out
+    at their count). None, as from :func:`fill_band_compact`, where the
+    COO is not sorted by row, or ``x`` and ``y`` are not both int32 or
+    both int64."""
+    _out(band_out, (np.uint8,))
+    if not _walkable(x, y):
+        return None
+    census, held = np.zeros(2, np.int64), ctypes.c_void_p()
+    n, _ = _compact("mtpu_fill_band_compact", x, y, v, band_out,
+                    (band_out.shape[0],), 0, n_threads, False, _ptr(census),
+                    ctypes.byref(held))
+    if n == UNSORTED:
+        return None
+    _check(n, "fill_band_u8_census")
+    exc = (None,) * 3
+    try:
+        exc = _exc_buffers(n)[:3]
+    finally:   # copies the held exceptions out (once made) and frees them
+        library().mtpu_take_exceptions(
+            held, *(None if a is None else _ptr(a) for a in exc))
+    return tuple(a[:n] for a in exc), (int(census[0]), int(census[1]))
+
+
+def _compact(name, x, y, v, band, window, exc_cap, n_threads, scan, *extra):
+    """One native compact fill over the rows ``window`` (``(n_rows,)`` or
+    ``(g0, g1)``): its return code and exception buffers."""
+    x, y = _xy(x, y)
+    v = _f64(v)
     er, ec, ev, cap = _exc_buffers(exc_cap)
     _count_fill()
-    n = _check(library().mtpu_fill_band_compact_range(
-        _ptr(x), _ptr(y), int(x.dtype == np.int64), v, len(v), _ptr(slab),
-        int(slab.dtype == np.uint16), int(g0), int(g1), slab.shape[1],
-        er, ec, ev, cap, int(n_threads)),
-        "fill_band_compact_range (exception capacity overflow)")
-    return er[:n], ec[:n], ev[:n]
+    n = getattr(library(), name)(
+        _ptr(x), _ptr(y), int(x.dtype == np.int64), v, len(v), _ptr(band),
+        int(band.dtype == np.uint16), *window, band.shape[1], er, ec, ev,
+        cap, int(n_threads), int(scan), *extra)
+    return n, (er, ec, ev)
+
+
+def _trimmed(name, n, exc):
+    """A compact fill's exceptions trimmed to its count ``n``; None for a
+    COO not sorted by row."""
+    if n == UNSORTED:
+        return None
+    _check(n, f"{name} (exception capacity overflow)")
+    return tuple(a[:n] for a in exc)
 
 
 def pack_band4(band, exc_cap, out=None, n_threads=N_THREADS):

@@ -105,37 +105,93 @@ def fill_raw_band_compact(x, y, v, band_shape, counts=None):
     exception list. Float-heavy data keeps the f32 band. ``counts``: the
     ``native.classify_values`` census when the caller has it.
 
+    Without ``counts``, one pass over a COO sorted by row fills the u8
+    band and takes the census (``native.fill_band_u8_census``). Where the
+    census then picks another encoding than u8 unpacked, or the COO is
+    not sorted by row (then the census, as the JAX package takes it, and
+    the full scan), the band is filled again in an ``upload.refill``
+    range.
+
     Returns ``(band, exceptions, packed4)``; ``exceptions`` is None or an
     unpadded (rows, cols, values) triple. Requires unique (x, y) pairs
     (the ingest-path invariant)."""
-    rf = torch.profiler.record_function
     rows, Dl = band_shape
     if not len(v):
         return fill_raw_band(x, y, v, band_shape), None, False
     if counts is None:
-        with rf("upload.census"):
-            counts = native.classify_values(v)
-    ne8, ne16 = counts
+        with torch.profiler.record_function("upload.fill"):
+            band = np.zeros(band_shape, np.uint8)
+            got = native.fill_band_u8_census(x, y, v, band)
+        if got is not None and _encoding(rows, Dl, *got[1]) == "u8":
+            exc = got[0]
+            return band, (exc if len(exc[0]) else None), False
+        # another encoding, or a COO not sorted by row (the full scan)
+        with torch.profiler.record_function("upload.refill"):
+            return _fill_by_census(x, y, v, band_shape,
+                                   None if got is None else got[1],
+                                   scan=got is None)
+    return _fill_by_census(x, y, v, band_shape, counts)
+
+
+def _encoding(rows: int, Dl: int, ne8: int, ne16: int) -> str:
+    """The band's encoding by the census: ``f32``, ``u16``, ``u8``, or
+    ``u8|u4`` where u8 wins and the band is large enough for the 4-bit
+    census to decide between u8 and nibble-packed u4."""
     bytes8 = rows * Dl + ne8 * EXC_BYTES
     bytes16 = 2 * rows * Dl + ne16 * EXC_BYTES
     if min(bytes8, bytes16) >= 4 * rows * Dl:
-        return fill_raw_band(x, y, v, band_shape), None, False
+        return "f32"
+    if bytes8 > bytes16:
+        return "u16"
     # 4-bit census only when u8 wins (its misfits are a superset) and the
     # band is large enough for the halved bytes to pay
-    ne4 = bytes4 = None
-    if (Dl % 2 == 0 and bytes8 <= bytes16 and rows * Dl >= _U4_MIN_BYTES):
+    if Dl % 2 == 0 and rows * Dl >= _U4_MIN_BYTES:
+        return "u8|u4"
+    return "u8"
+
+
+def _fill_by_census(x, y, v, band_shape, counts, scan=False):
+    """:func:`fill_raw_band_compact` by the census: ``counts``, or
+    ``native.classify_values`` taken here when None; ``scan``: the COO is
+    known not to be sorted by row (:func:`_compact_fill`)."""
+    rf = torch.profiler.record_function
+    rows, Dl = band_shape
+    if counts is None:
+        with rf("upload.census"):
+            counts = native.classify_values(v)
+    ne8, ne16 = counts
+    encoding = _encoding(rows, Dl, ne8, ne16)
+    if encoding == "f32":
+        return fill_raw_band(x, y, v, band_shape), None, False
+    packed4 = False
+    if encoding == "u8|u4":
         with rf("upload.census"):
             ne4 = native.classify_values4(v)
-        bytes4 = rows * Dl // 2 + ne4 * EXC_BYTES
-    dtype, ne = (np.uint8, ne8) if bytes8 <= bytes16 else (np.uint16, ne16)
-    packed4 = bytes4 is not None and bytes4 < 0.7 * bytes8
+        packed4 = (rows * Dl // 2 + ne4 * EXC_BYTES
+                   < 0.7 * (rows * Dl + ne8 * EXC_BYTES))
+    dtype, ne = (np.uint16, ne16) if encoding == "u16" else (np.uint8, ne8)
     with rf("upload.fill"):
         band = np.zeros(band_shape, dtype)
-        exc = native.fill_band_compact(x, y, v, band, ne + 16)
+        exc = _compact_fill(native.fill_band_compact, x, y, v, band, ne + 16,
+                            scan=scan)
         if packed4:
             band, big = native.pack_band4(band, ne4 + 16)
             exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
     return band, (exc if len(exc[0]) else None), packed4
+
+
+def _compact_fill(fill, *args, scan=False):
+    """A native compact fill (``native.fill_band_compact`` or its row
+    window) by row ranges, or with ``scan`` by the full scan; where the
+    walk finds the COO not sorted by row, the full scan fills it again in
+    an ``upload.refill`` range."""
+    if scan:
+        return fill(*args, scan=True)
+    exc = fill(*args)
+    if exc is None:
+        with torch.profiler.record_function("upload.refill"):
+            exc = fill(*args, scan=True)
+    return exc
 
 
 @dataclasses.dataclass
@@ -177,18 +233,19 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
     while slab k's pinned, non-blocking H2D is in flight. The slabs land
     in one preallocated device band, so nothing is concatenated. Other
     bands take the one-shot :func:`fill_raw_band_compact` and one H2D.
-    Its stages are profiler ranges: ``upload.census`` (the value census),
-    ``upload.fill`` (the host band's fill, u4 pack and exceptions) and
-    ``upload.stage`` (pinning and the H2D enqueue)."""
+    Its stages are profiler ranges: ``upload.census`` (the value census,
+    which the one-shot fill takes in its fill's pass), ``upload.fill``
+    (the host band's fill, u4 pack and exceptions), ``upload.refill``
+    (a second fill: :func:`fill_raw_band_compact`, :func:`_compact_fill`)
+    and ``upload.stage`` (pinning and the H2D enqueue)."""
     rf = torch.profiler.record_function
     rows, Dl = band_shape
     streamable = (len(v) >= (1 << 20) and rows >= 4096
                   and rows * Dl >= 8_000_000)
     counts = None
-    if len(v):
+    if streamable:
         with rf("upload.census"):
             counts = native.classify_values(v)
-    if streamable:
         ne8, ne16 = counts
         bytes8 = rows * Dl + ne8 * EXC_BYTES
         # only the u8/u4 encodings stream (u16/f32 data goes one-shot,
@@ -207,8 +264,9 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
     pin = device.type == "cuda"
     width = Dl // 2 if p4 else Dl
     band_dev = torch.empty((rows, width), dtype=torch.uint8, device=device)
-    # 2 slabs: each range fill scans the whole COO, so more slabs cost
-    # host time faster than they add overlap
+    # 2 slabs: each range fill reads every entry's x (its rows' entries
+    # walked, the others' for their order), so more slabs cost host time
+    # faster than they add overlap
     n_slabs = 2
     per = -(-rows // n_slabs)
     staged, excs = [], []
@@ -217,8 +275,8 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
         with rf("upload.fill"):
             slab = torch.zeros((g1 - g0, Dl), dtype=torch.uint8,
                                pin_memory=pin and not p4)
-            exc = native.fill_band_compact_range(x, y, v, slab.numpy(), g0,
-                                                 g1, ne8 + 16)
+            exc = _compact_fill(native.fill_band_compact_range, x, y, v,
+                                slab.numpy(), g0, g1, ne8 + 16)
             if p4:
                 packed = torch.empty((g1 - g0, width), dtype=torch.uint8,
                                      pin_memory=pin)

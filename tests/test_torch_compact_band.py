@@ -221,3 +221,121 @@ def test_pipeline_loops_identical_with_float_tail(monkeypatch):
                                            log=logs.append)
     assert "band=f32" in logs[0]
     assert loops == loops_f32 and len(loops) > 5
+
+
+def _census_first(x, y, v, shape, u4_min):
+    """The band as the census-first rule gives it (the JAX package's, and
+    the port's before its one-pass fill), written out with the numpy
+    twins: ``(encoding, band, exceptions or None)``."""
+    native = tpipeline.native
+    rows, Dl = shape
+    ne8, ne16 = native.classify_values_plain(v)
+    bytes8, bytes16 = rows * Dl + 12 * ne8, 2 * rows * Dl + 12 * ne16
+    if min(bytes8, bytes16) >= 4 * rows * Dl:
+        band = np.zeros(shape, np.float32)
+        native.fill_band_plain(x, y, v, band)
+        return "f32", band, None
+    dtype = np.uint8 if bytes8 <= bytes16 else np.uint16
+    band = np.zeros(shape, dtype)
+    exc = native.fill_band_compact_plain(x, y, v, band)
+    if dtype == np.uint8 and Dl % 2 == 0 and rows * Dl >= u4_min:
+        ne4 = native.classify_values4_plain(v)
+        if rows * Dl // 2 + 12 * ne4 < 0.7 * bytes8:
+            band, big = native.pack_band4_plain(band)
+            exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
+            return "u4", band, exc
+    return ("u8" if dtype == np.uint8 else "u16"), band, (
+        exc if len(exc[0]) else None)
+
+
+def _exc_bits(exc):
+    if exc is None:
+        return []
+    r, c, v = (np.asarray(a) for a in exc)
+    return sorted(zip(r.tolist(), c.tolist(),
+                      v.astype(np.float32).view(np.int32).tolist()))
+
+
+def _ranges(fn):
+    """``fn()`` and the names of the profiler ranges it opened."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, [e.name for e in prof.events()]
+
+
+# encoding the census picks: (lam, share of fractions, sorted by row,
+# encoding, upload.refill ranges, whether a census range opens)
+ONE_PASS = {
+    "u8": (6.0, 0.002, True, "u8", 0, False),
+    "u16": (500.0, 0.002, True, "u16", 1, False),
+    "f32": (40.0, 1.0, True, "f32", 1, False),
+    "u4": (1.0, 0.002, True, "u4", 1, True),
+    "u8_unsorted": (6.0, 0.002, False, "u8", 1, True),
+    "f32_unsorted": (40.0, 1.0, False, "f32", 1, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONE_PASS))
+@pytest.mark.parametrize("entry", ["fill_raw_band_compact",
+                                   "stream_band_to_device"])
+def test_one_pass_upload_keeps_the_census_first_band(entry, case,
+                                                     monkeypatch):
+    """The one-shot upload fills the u8 band and takes the census in one
+    pass over a COO sorted by row; where the census picks another
+    encoding (u16, f32, or u4 on a band that large) or the rows are not
+    sorted, the band is filled again in one ``upload.refill`` range. The
+    encoding, the band, its exceptions and the widened band are the
+    census-first rule's either way. 80,000 entries: the threaded walk."""
+    lam, frac_float, rows_sorted, want, refills, census = ONE_PASS[case]
+    u4_min = 0 if want == "u4" else tpipeline._U4_MIN_BYTES
+    monkeypatch.setattr(tpipeline, "_U4_MIN_BYTES", u4_min)
+    rows, Dl = 600, 256
+    x, y, v = _coo(rows, Dl, seed=41, frac_float=frac_float, lam=lam,
+                   n=80_000)
+    if rows_sorted:
+        order = np.argsort(x, kind="stable")
+        x, y, v = x[order], y[order], v[order]
+    if entry == "fill_raw_band_compact":
+        (band, exc, p4), names = _ranges(
+            lambda: tpipeline.fill_raw_band_compact(x, y, v, (rows, Dl)))
+        encoding = "u4" if p4 else {np.dtype(np.uint8): "u8",
+                                    np.dtype(np.uint16): "u16",
+                                    np.dtype(np.float32): "f32"}[band.dtype]
+    else:
+        up, names = _ranges(
+            lambda: tpipeline.stream_band_to_device(x, y, v, (rows, Dl), CPU))
+        band, exc, p4, encoding = (up.band.numpy(), up.exceptions,
+                                   up.packed4, up.encoding)
+        assert up.slabs == 1
+    assert names.count("upload.refill") == refills
+    assert ("upload.census" in names) == census
+    rule, rule_band, rule_exc = _census_first(x, y, v, (rows, Dl), u4_min)
+    assert encoding == rule == want
+    assert band.dtype == rule_band.dtype
+    np.testing.assert_array_equal(band, rule_band)
+    assert _exc_bits(exc) == _exc_bits(rule_exc)
+    np.testing.assert_array_equal(_widen(band, exc, p4),
+                                  _f32(x, y, v, (rows, Dl)))
+
+
+@pytest.mark.parametrize("rows_sorted", [True, False])
+def test_streamed_slabs_walk_their_rows(rows_sorted):
+    """The streamed upload's two slab fills walk their own rows of a COO
+    sorted by row (no ``upload.refill``); on one that is not, each slab is
+    filled again by the full scan (two). The band is the one-shot fill's
+    either way."""
+    rows, Dl = 4096, 2048
+    x, y, v = _coo(rows, Dl, seed=43, frac_float=0.001, lam=40.0,
+                   n=(1 << 20) + 5)
+    if rows_sorted:
+        order = np.argsort(x, kind="stable")
+        x, y, v = x[order], y[order], v[order]
+    up, names = _ranges(
+        lambda: tpipeline.stream_band_to_device(x, y, v, (rows, Dl), CPU))
+    assert up.encoding == "u8" and up.slabs == 2
+    assert names.count("upload.refill") == (0 if rows_sorted else 2)
+    band, exc, p4 = tpipeline.fill_raw_band_compact(x, y, v, (rows, Dl))
+    assert not p4
+    assert torch.equal(up.band, torch.from_numpy(band))
+    assert _exc_bits(up.exceptions) == _exc_bits(exc)

@@ -168,3 +168,205 @@ def test_fill_counts_and_rejects_bad_buffers():
     with pytest.raises(RuntimeError, match="overflow"):
         vf = v + 0.5
         tn.fill_band_compact(x, y, vf, np.zeros((40, 16), np.uint8), 1)
+
+
+# the threaded fills: at least 2^16 entries (fewer run on one thread)
+BIG_ROWS, BIG_DL = 600, 256
+
+
+def _big_coo(case, *, seed=11):
+    """About 80,000 entries over a (600, 256) band, sorted by row (a
+    stable sort, so duplicate pairs keep their input order) unless the
+    case is ``unsorted``; ``misfits`` puts every kind of value that fits
+    no narrow band (256 and up, 65536 and up, fractions, NaN, +-inf,
+    negatives) and -0.0 among them; ``outside`` adds entries off the band
+    (d < 0, d >= ldb) and off its rows (x < 0, x >= rows); ``duplicates``
+    repeats 3,000 pairs with other values; ``nearly_sorted`` moves five
+    entries one place; ``int32`` and ``mixed`` give int32 indices to both
+    and to x alone."""
+    rng = np.random.default_rng(seed)
+    n = 80_000
+    flat = rng.choice(BIG_ROWS * BIG_DL, size=n, replace=False)
+    x, d = flat // BIG_DL, flat % BIG_DL
+    v = rng.poisson(6.0, size=n).astype(np.float64)
+    v[rng.choice(n, 200, replace=False)] = 300.0     # u8 misfits
+    if case == "misfits":
+        odd = [256.0, 65535.0, 65536.0, 2.0 ** 53, 2.0 ** 53 + 2, 3.5, 0.25,
+               np.nan, np.inf, -np.inf, -1.0, -0.5, -0.0]
+        at = rng.choice(n, 40 * len(odd), replace=False)
+        v[at] = np.repeat(odd, 40)
+    if case == "outside":
+        k = 400
+        at = rng.choice(n, 4 * k, replace=False)
+        d[at[:k]] = -rng.integers(1, 9, k)                     # d < 0
+        d[at[k:2 * k]] = BIG_DL + rng.integers(0, 9, k)        # d >= ldb
+        x[at[2 * k:3 * k]] = -rng.integers(1, 4, k)            # x < 0
+        x[at[3 * k:]] = BIG_ROWS + rng.integers(0, 4, k)       # x >= rows
+    if case == "duplicates":
+        at = rng.choice(n, 3000, replace=False)
+        x, d = np.concatenate([x, x[at]]), np.concatenate([d, d[at]])
+        v = np.concatenate([v, v[at] + rng.choice([1.0, 0.5, 300.0], 3000)])
+    y = x + d
+    order = (rng.permutation(len(x)) if case == "unsorted"
+             else np.argsort(x, kind="stable"))
+    x, y, v = x[order], y[order], v[order]
+    if case == "nearly_sorted":
+        # five entries one place late, each at a row's end: descents that
+        # only the walk can see (between the evenly spaced samples)
+        ends = np.flatnonzero(np.diff(x) > 0)
+        ends = ends[~np.isin(ends, _samples(len(x)))
+                    & ~np.isin(ends + 1, _samples(len(x)))]
+        for i in rng.choice(ends, 5, replace=False):
+            for a in (x, y, v):
+                a[i], a[i + 1] = a[i + 1], a[i]
+    ix = np.int32 if case in ("int32", "mixed") else np.int64
+    iy = np.int32 if case == "int32" else np.int64
+    return x.astype(ix), y.astype(iy), v
+
+
+def _samples(n):
+    """The entries whose rows the walk compares before any write."""
+    return np.arange(4096, dtype=np.int64) * n // 4096
+
+
+def _exc_bits(exc):
+    """An exception list as a sorted list of (row, col, f32 bits), so NaN
+    compares equal to itself."""
+    r, c, v = (np.asarray(a) for a in exc)
+    return sorted(zip(r.tolist(), c.tolist(),
+                      v.astype(np.float32).view(np.int32).tolist()))
+
+
+BIG_CASES = ["sorted", "unsorted", "nearly_sorted", "duplicates", "misfits",
+             "outside", "int32", "mixed"]
+
+
+@pytest.mark.parametrize("threads", [1, 3, 8])
+@pytest.mark.parametrize("case", BIG_CASES)
+def test_threaded_compact_fills_match_twins(case, threads):
+    """The row-range walk (each thread its own rows' entries, found by
+    binary search) against the numpy twins, band bit for bit and the
+    exceptions as a set, for the one-shot fill in both widths, both
+    halves of the streamed upload's row window, and the one pass that
+    also counts the census. The walk declines (None, the band zero)
+    exactly where x and y differ in dtype, or where the rows are not
+    sorted and more than one thread shares the work; ``scan=True`` then
+    fills as the twin does."""
+    x, y, v = _big_coo(case)
+    assert len(v) >= 1 << 16
+    declines = case == "mixed" or (
+        case in ("unsorted", "nearly_sorted") and threads > 1)
+
+    def check(fill, band, twin_exc, twin_band):
+        exc = fill(band)
+        assert (exc is None) == declines
+        if exc is None:
+            assert not band.any()
+            exc = fill(band, scan=True)
+        np.testing.assert_array_equal(band, twin_band)
+        assert _exc_bits(exc) == _exc_bits(twin_exc)
+
+    for dtype in (np.uint8, np.uint16):
+        twin = np.zeros((BIG_ROWS, BIG_DL), dtype)
+        twin_exc = tn.fill_band_compact_plain(x, y, v, twin)
+        check(lambda b, **kw: tn.fill_band_compact(
+                  x, y, v, b, len(v), n_threads=threads, **kw),
+              np.zeros_like(twin), twin_exc, twin)
+    half = BIG_ROWS // 2
+    for g0, g1 in ((0, half), (half, BIG_ROWS)):
+        twin = np.zeros((g1 - g0, BIG_DL), np.uint8)
+        twin_exc = tn.fill_band_compact_range_plain(x, y, v, twin, g0, g1)
+        check(lambda b, **kw: tn.fill_band_compact_range(
+                  x, y, v, b, g0, g1, len(v), n_threads=threads, **kw),
+              np.zeros_like(twin), twin_exc, twin)
+
+    band = np.zeros((BIG_ROWS, BIG_DL), np.uint8)
+    got = tn.fill_band_u8_census(x, y, v, band, n_threads=threads)
+    assert (got is None) == declines
+    if got is not None:
+        exc, counts = got
+        twin = np.zeros_like(band)
+        assert _exc_bits(exc) == _exc_bits(
+            tn.fill_band_compact_plain(x, y, v, twin))
+        np.testing.assert_array_equal(band, twin)
+        assert counts == tn.classify_values_plain(v) == tn.classify_values(v)
+    else:
+        assert not band.any()
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+def test_census_pass_returns_every_exception(threads):
+    """The one pass has no exception capacity: a band whose every value
+    is a misfit gives all of them, with the census; the fill with a
+    capacity raises on the same input."""
+    x, y, v = _big_coo("sorted")
+    v = v + 0.5
+    band, twin = (np.zeros((BIG_ROWS, BIG_DL), np.uint8) for _ in range(2))
+    exc, counts = tn.fill_band_u8_census(x, y, v, band, n_threads=threads)
+    twin_exc = tn.fill_band_compact_plain(x, y, v, twin)
+    assert len(exc[0]) == len(v) and not band.any()
+    assert _exc_bits(exc) == _exc_bits(twin_exc)
+    assert counts == tn.classify_values_plain(v) == (len(v), len(v))
+    with pytest.raises(RuntimeError, match="overflow"):
+        tn.fill_band_compact(x, y, v, np.zeros_like(band), 100,
+                             n_threads=threads)
+
+
+def test_walk_finds_disorder_outside_its_rows():
+    """A COO sorted by row but for one entry among rows a slab does not
+    own: the slab's walk still declines, since the other rows are read
+    for their order."""
+    x, y, v = _big_coo("sorted")
+    i = int(np.searchsorted(x, BIG_ROWS - 20))
+    i += np.isin(i, _samples(len(x)))       # between the samples
+    x, y = x.copy(), y.copy()
+    x[i], y[i] = 2, 2 + 5                          # a row-2 entry late
+    slab = np.zeros((BIG_ROWS // 2, BIG_DL), np.uint8)
+    assert tn.fill_band_compact_range(x, y, v, slab, 0, BIG_ROWS // 2,
+                                      len(v)) is None
+    assert not slab.any()
+    exc = tn.fill_band_compact_range(x, y, v, slab, 0, BIG_ROWS // 2,
+                                     len(v), scan=True)
+    twin = np.zeros_like(slab)
+    twin_exc = tn.fill_band_compact_range_plain(x, y, v, twin, 0,
+                                                BIG_ROWS // 2)
+    np.testing.assert_array_equal(slab, twin)
+    assert _exc_bits(exc) == _exc_bits(twin_exc)
+
+
+def test_walk_checks_the_seams_between_pieces():
+    """A COO whose every piece is sorted, with one descent exactly where
+    two pieces meet: among the rows before a slab, read in three pieces by
+    three threads, the last entry of the first piece moved one row past
+    the next piece's first. Only the check of the seams after the join
+    finds it."""
+    x, y, v = _big_coo("sorted")
+    g0, g1 = BIG_ROWS // 2, BIG_ROWS
+    b = int(np.searchsorted(x, g0)) // 3      # the second piece's start
+    x, y = x.copy(), y.copy()
+    x[b - 1] = x[b] + 1
+    y[b - 1] = x[b - 1] + 3
+    assert not np.isin([b - 1, b], _samples(len(x))).any()
+    assert np.all(np.diff(x[:b]) >= 0) and np.all(np.diff(x[b:]) >= 0)
+    slab = np.zeros((g1 - g0, BIG_DL), np.uint8)
+    assert tn.fill_band_compact_range(x, y, v, slab, g0, g1, len(v),
+                                      n_threads=3) is None
+    assert not slab.any()
+
+
+@pytest.mark.parametrize("order", ["permuted", "blocks"])
+def test_other_orders_are_refused_before_any_write(order):
+    """A COO in another order (a random one, or a ``.hic`` file's: blocks
+    of 128 rows, each by column and then row) is refused from the rows
+    of evenly spaced entries, before any thread writes: a band that
+    holds something keeps it."""
+    x, y, v = _big_coo("sorted")
+    if order == "permuted":
+        perm = np.random.default_rng(3).permutation(len(x))
+    else:
+        perm = np.lexsort((x, y, x // 128))
+    x, y, v = x[perm], y[perm], v[perm]
+    band = np.full((BIG_ROWS, BIG_DL), 7, np.uint8)
+    assert tn.fill_band_compact(x, y, v, band, len(v)) is None
+    assert tn.fill_band_u8_census(x, y, v, band) is None
+    assert (band == 7).all()

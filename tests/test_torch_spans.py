@@ -8,6 +8,7 @@ chromosome it reads on the profiled thread into a ``hic.decode`` and a
 import json
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,7 +29,6 @@ CFG = DetectionConfig(resolution=RES, distance_bp=120 * RES, pt=0.1,
 DETECT_NESTING = {
     "pipeline.prepare": "pipeline.call",
     "pipeline.upload": "pipeline.call",
-    "upload.census": "pipeline.upload",
     "upload.fill": "pipeline.upload",
     "upload.stage": "pipeline.upload",
     "pipeline.normalize": "pipeline.call",
@@ -109,6 +109,10 @@ def test_detect_call_holds_every_stage(one_map, detect_rows, tmp_path):
     assert len(spans["pipeline.prepare"]) == 2
     assert len(spans["mesh.launch"]) == len(spans["mesh.collect"]) == 2
     assert "pipeline.regrow" not in spans
+    # a map sorted by row, of integer counts: the fill's one pass takes
+    # the census, and nothing is filled again
+    assert len(spans["upload.fill"]) == 1
+    assert "upload.census" not in spans and "upload.refill" not in spans
 
 
 def test_diff_call_holds_every_stage(two_maps, diff_rows, tmp_path):
@@ -118,6 +122,25 @@ def test_diff_call_holds_every_stage(two_maps, diff_rows, tmp_path):
     assert_nested(spans, DIFF_NESTING, "diff.call")
     assert len(spans["pipeline.upload"]) == 2
     assert "pipeline.regrow" not in spans
+    assert "upload.census" not in spans and "upload.refill" not in spans
+
+
+def test_unsorted_map_takes_census_and_refill(one_map, detect_rows,
+                                              tmp_path):
+    """The same map in another order of rows: the one pass finds the
+    disorder, so the upload takes the census and fills the band again by
+    the full scan, one ``upload.census`` and one ``upload.refill`` inside
+    ``pipeline.upload``; the rows are the sorted map's."""
+    x, y, v = one_map
+    assert len(v) >= 1 << 16       # the threaded walk
+    order = np.random.default_rng(5).permutation(len(v))
+    rows, spans = profiled(
+        lambda: detect_loops_coo(x[order], y[order], v[order], CFG,
+                                 device="cpu"), tmp_path)
+    assert rows == detect_rows
+    assert len(spans["upload.census"]) == len(spans["upload.refill"]) == 1
+    assert_nested(spans, {"upload.census": "pipeline.upload",
+                          "upload.refill": "pipeline.upload"})
 
 
 @pytest.mark.parametrize("entry", ["detect", "diff"])
