@@ -3748,9 +3748,9 @@ def phase_whole_chroms(dev):
 
 
 def build_all():
-    """Build the fused kernel (nvcc), the native band fill, host normalize
-    and .hic decoder (g++) at the same time (``warmup.warm``), then load
-    them."""
+    """Build the fused kernel (nvcc), the native band fill, host normalize,
+    .hic decoder and HDF5 chunk decoder (g++) at the same time
+    (``warmup.warm``), then load them."""
     from mustache_tpu_torch import warmup
     from mustache_tpu_torch.io import native
     from mustache_tpu_torch.kernels import build

@@ -1,5 +1,5 @@
 """Read-only HDF5, for the subset that h5py and cooler write, in numpy and
-the standard library's ``zlib`` (no h5py, no libhdf5).
+a native chunk decoder linked against zlib (no h5py, no libhdf5).
 
 ``.cool`` / ``.mcool`` files are HDF5; the card machine has no h5py, so
 ``io/cool.py`` reads them through this module. What it reads:
@@ -21,11 +21,19 @@ the standard library's ``zlib`` (no h5py, no libhdf5).
   (cooler's default ``h5opts``: gzip level 6 with shuffle).
 
 :meth:`H5File.read` decompresses only the chunks that overlap the rows
-asked for and widens them to the caller's dtype. Every read adds to the
-file's :attr:`H5File.counters`: the chunks inflated, their inflated
-bytes and the seconds spent in ``zlib`` and in undoing the shuffle (a
-chromosome of a cooler file at 5 kb has thousands of chunks, too many for
-a profiler range each). Anything outside the
+asked for and widens them to the caller's dtype. A chunked dataset of
+fixed-size elements (numbers, fixed-length strings) is read by one call
+of the native decoder (``io/native/h5_chunks.cpp``): on up to
+``native.N_THREADS`` threads, each chunk is read, inflated, unshuffled
+and widened in one pass straight into the output; the Python loop it
+replaced is kept as :meth:`H5File._read_chunked_plain`, the twin the
+tests hold it to, and reads only chunked variable-length strings (whose
+heap references are resolved in Python). Every read adds to the file's
+:attr:`H5File.counters`: the chunks inflated, their inflated bytes, the
+seconds spent in ``zlib`` and in undoing the shuffle (summed over the
+decoder's threads: CPU time, not wall time) and the chunks the native
+decoder took (a chromosome of a cooler file at 5 kb has thousands of
+chunks, too many for a profiler range each). Anything outside the
 subset (fletcher32, szip or another filter, dense link or attribute
 storage in a fractal heap, a chunk index other than the v1 B-tree,
 shared or committed messages, soft or external links, datasets of rank
@@ -43,6 +51,8 @@ import time
 import zlib
 
 import numpy as np
+
+from mustache_tpu_torch.io import native
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 
@@ -114,6 +124,7 @@ class _Dataset:
         self.shape, self.dtype, self.layout = shape, dtype, layout
         self.filters, self.fill = filters, fill
         self._chunks = None          # cached chunk index
+        self._chunk_arrays = None    # the same as int64 arrays
 
 
 class H5File:
@@ -132,8 +143,12 @@ class H5File:
         self._objects: dict[str, int] = {"": self._root}
         self._headers: dict[int, list] = {}
         self._datasets: dict[str, _Dataset] = {}
+        # inflate_s and unshuffle_s: seconds summed over the native
+        # decoder's threads (CPU time, not wall time); chunks_native: the
+        # chunks that decoder took
         self.counters = {"chunks_inflated": 0, "bytes_inflated": 0,
-                         "inflate_s": 0.0, "unshuffle_s": 0.0}
+                         "inflate_s": 0.0, "unshuffle_s": 0.0,
+                         "chunks_native": 0}
 
     # -- file access -------------------------------------------------------
     def _read(self, addr: int, n: int) -> bytes:
@@ -659,8 +674,10 @@ class H5File:
         out = np.empty(hi - lo, out_dtype)
         if hi > lo:
             lay = ds.layout
-            if lay["class"] == "chunked":
+            if lay["class"] == "chunked" and t.kind == "num":
                 self._read_chunked(path, ds, lo, hi, out)
+            elif lay["class"] == "chunked":
+                self._read_chunked_plain(path, ds, lo, hi, out)
             else:
                 if lay["class"] == "compact":
                     raw = lay["data"][lo * t.size:hi * t.size]
@@ -701,7 +718,87 @@ class H5File:
             ds._chunks = out
         return ds._chunks
 
+    def _chunk_table(self, ds: _Dataset):
+        """:meth:`_chunk_index` as int64 arrays ``(first row, stored size,
+        filter mask, file offset)``; an undefined address as -1."""
+        if ds._chunk_arrays is None:
+            chunks = self._chunk_index(ds)
+            ds._chunk_arrays = tuple(
+                np.array([c[i] for c in chunks], np.int64) for i in range(3)
+            ) + (np.array([-1 if c[3] == self._undef else self._base + c[3]
+                           for c in chunks], np.int64),)
+        return ds._chunk_arrays
+
     def _read_chunked(self, path, ds: _Dataset, lo, hi, out) -> None:
+        """Rows ``[lo, hi)`` of a chunked dataset of fixed-size elements
+        into ``out``: the chunks that meet them are picked here, and one
+        native call decodes them (``native.decode_h5_chunks``); rows no
+        chunk holds read as the fill value."""
+        t = ds.dtype
+        cn = ds.layout["dims"][0]
+        first, size, mask, addr = self._chunk_table(ds)
+        k0 = max(0, int(np.searchsorted(first, lo, "right")) - 1)
+        k1 = int(np.searchsorted(first, hi, "left"))
+        sel = np.arange(k0, max(k0, k1))
+        sel = sel[first[sel] + cn > lo]
+        first, size, mask, addr = first[sel], size[sel], mask[sel], addr[sel]
+        bad = np.flatnonzero((addr < 0) | (addr + size > self._size))
+        if len(bad):
+            k = bad[0]
+            if addr[k] < 0:
+                raise ValueError("HDF5: read at an undefined address")
+            raise ValueError(f"HDF5: {size[k]} bytes at {addr[k]} lie beyond "
+                             f"the end of {self.path} ({self._size} bytes): "
+                             f"truncated file")
+        fids = [fid for fid, _, _ in ds.filters]
+        fes = [(cd[0] if cd else t.size) if fid == 2 else 0
+               for fid, _, cd in ds.filters]
+        target = out
+        if not native.h5_writes(t.dtype, out.dtype):
+            # a cast the decoder does not make: numpy's, from the stored
+            # type (zeroed: rows no chunk holds are cast too)
+            target = np.zeros(hi - lo, t.dtype.newbyteorder("="))
+        rc, stats = native.decode_h5_chunks(
+            self._fh.fileno(), addr, size, mask, first, cn, fids, fes,
+            t.dtype, target, lo, hi)
+        count = self.counters
+        count["chunks_inflated"] += int(stats[0])
+        count["bytes_inflated"] += int(stats[1])
+        count["inflate_s"] += float(stats[2]) * 1e-9
+        count["unshuffle_s"] += float(stats[3]) * 1e-9
+        count["chunks_native"] += len(sel)
+        if rc:
+            row = int(first[stats[4]])
+            if rc == native.H5_INFLATE:
+                raise ValueError(f"{path!r}: chunk at row {row} does not "
+                                 f"inflate (zlib error {int(stats[5])})")
+            if rc == native.H5_SIZE:
+                raise ValueError(f"{path!r}: chunk at row {row} holds "
+                                 f"{int(stats[5])} bytes, expected "
+                                 f"{cn * t.size}")
+            raise ValueError(f"HDF5: the chunk at row {row} of {path!r} "
+                             f"read short ({int(stats[5])} of "
+                             f"{int(size[stats[4]])} bytes)")
+        if target is not out:
+            out[:] = target
+        held = np.minimum(hi, first + cn) - np.maximum(lo, first)
+        if int(held.sum()) != hi - lo:
+            self._fill_uncovered(ds, lo, hi, out)
+
+    def _fill_uncovered(self, ds: _Dataset, lo, hi, out) -> None:
+        """Rows of ``[lo, hi)`` that no chunk holds read as the fill
+        value, as HDF5 does."""
+        cn = ds.layout["dims"][0]
+        mask = np.ones(hi - lo, bool)
+        for first, _, _, _ in self._chunk_index(ds):
+            mask[max(0, first - lo):max(0, min(hi, first + cn) - lo)] = False
+        out[mask] = self._fill_values(ds, int(mask.sum()))
+
+    def _read_chunked_plain(self, path, ds: _Dataset, lo, hi, out) -> None:
+        """:meth:`_read_chunked` one chunk at a time in Python and
+        ``zlib`` (the loop the native decoder replaced): the twin the tests
+        hold the native call to, and the reader of chunked variable-length
+        strings."""
         t = ds.dtype
         cn = ds.layout["dims"][0]
         chunks = self._chunk_index(ds)
@@ -744,9 +841,4 @@ class H5File:
             out[a - lo:b - lo] = vals
             covered += b - a
         if covered != hi - lo:
-            # rows no chunk holds read as the fill value, as HDF5 does
-            mask = np.ones(hi - lo, bool)
-            for first, _, _, _ in chunks:
-                mask[max(0, first - lo):max(0, min(hi, first + cn) - lo)] = \
-                    False
-            out[mask] = self._fill_values(ds, int(mask.sum()))
+            self._fill_uncovered(ds, lo, hi, out)

@@ -1,32 +1,37 @@
-"""ctypes bindings for the native host band fill, host normalize and
-``.hic`` block decoder, and the band fill's numpy twins.
+"""ctypes bindings for the native host band fill, host normalize,
+``.hic`` block decoder and HDF5 chunk decoder, and the band fill's numpy
+twins.
 
 Torch port of ``mustache_tpu/io/native/__init__.py`` (bindings at :50-70,
 :189-218, :221-247 and :250-424). ``band_fill.cpp``, ``normalize.cpp``
 and ``hic_decode.cpp`` (copies of the JAX package's functions but for
 the compact fills' row-range walk and census, ``band_fill.cpp``'s header;
-the decoder links zlib) are compiled with g++ at first use into the port's
-build cache (``kernels/build.py``, keyed by a hash of the source); a
-failed build raises, and nothing here falls back to numpy or Python's
-``zlib`` (``available`` only says whether a compiler is found). Argument dtypes and
-contiguity are checked in Python before any pointer is passed; a wrong
-one raises ``TypeError``.
+the decoder links zlib) and ``h5_chunks.cpp`` (the port's own: the
+chunked reads of ``io/h5.py``, which links zlib too) are compiled with
+g++ at first use into the port's build cache (``kernels/build.py``, keyed
+by a hash of the source); a failed build raises, and nothing here falls
+back to numpy or Python's ``zlib`` (``available`` only says whether a
+compiler is found). Argument dtypes and contiguity are checked in Python
+before any pointer is passed; a wrong one raises ``TypeError``.
 
 The ``*_plain`` functions are the numpy twins the JAX package keeps
 beside its native calls (``mustache_tpu/pipeline.py:67-76,109-112,
 136-147,159-165``). The tests hold the native functions to them; the
 pipeline calls only :func:`fill_band_plain`, for the float64 band the
-native fill (float32 only) does not write.
+native fill (float32 only) does not write. The chunk decoder's twin is
+``H5File._read_chunked_plain``.
 
-``FILLS`` counts the native fill calls and ``DECODES`` the native
-``.hic`` decoder calls (plain integers), so a run can show that its band
-went up through the native fill and its ``.hic`` blocks through the
-native decoder.
+``FILLS`` counts the native fill calls, ``DECODES`` the native ``.hic``
+decoder calls and ``H5_DECODES`` the native HDF5 chunk decoder calls
+(plain integers), so a run can show that its band went up through the
+native fill, its ``.hic`` blocks through the native decoder and its
+cooler columns through the chunk decoder.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -34,9 +39,12 @@ import numpy as np
 SRC = Path(__file__).resolve().parent / "band_fill.cpp"
 NORM_SRC = Path(__file__).resolve().parent / "normalize.cpp"
 HIC_SRC = Path(__file__).resolve().parent / "hic_decode.cpp"
+H5_SRC = Path(__file__).resolve().parent / "h5_chunks.cpp"
 N_THREADS = 8
 FILLS = 0
 DECODES = 0
+H5_DECODES = 0
+_H5_DECODES_LOCK = threading.Lock()   # the CLI decodes on two threads
 
 _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -154,6 +162,91 @@ def decode_hic_blocks(path: str, positions, sizes, version: int):
             continue
         raise IOError(f"native .hic decode failed (rc={rc}) for {path}")
     raise IOError(f"native .hic decode: capacity retry exhausted for {path}")
+
+
+def bind_h5(lib) -> None:
+    """ctypes signatures of the HDF5 chunk decoder."""
+    lib.mtpu_h5_decode_chunks.restype = ctypes.c_int
+    lib.mtpu_h5_decode_chunks.argtypes = [
+        _i32, _I64, _I64, _I64, _I64, _i64, _i64, _I32, _I32, _i32, _i32,
+        _i32, _i32, _P, _i32, _i32, _i64, _i64, _i32, _I64]
+    lib.mtpu_h5_zlib_declared.restype = ctypes.c_int
+    lib.mtpu_h5_zlib_declared.argtypes = []
+
+
+def h5_library():
+    """The HDF5 chunk decoder library, built at first use (raises on
+    failure)."""
+    from mustache_tpu_torch.kernels import build
+
+    return build.load("h5_chunks", bind_h5, src=H5_SRC)
+
+
+# the chunk decoder's return codes (``h5_chunks.cpp``)
+H5_READ, H5_INFLATE, H5_SIZE = 1, 2, 3
+# its element type codes: 0 copies the stored bytes (any fixed size)
+_H5_CODES = {np.dtype(c): i for i, c in enumerate(
+    ("i1", "i2", "i4", "i8", "u1", "u2", "u4", "u8", "f4", "f8"), start=1)}
+_H5_WIDE = (np.dtype(np.int64), np.dtype(np.float64))
+
+
+def h5_writes(stored, out) -> bool:
+    """Whether :func:`decode_h5_chunks` writes elements of the file type
+    ``stored`` (a numpy dtype of either byte order) as ``out``: as stored
+    in native order, or a number widened to int64 or float64 (a float
+    only to float64)."""
+    stored, out = np.dtype(stored).newbyteorder("="), np.dtype(out)
+    if out == stored:
+        return True
+    return (out in _H5_WIDE and stored in _H5_CODES
+            and not (stored.kind == "f" and out.kind == "i"))
+
+
+def decode_h5_chunks(fd: int, addr, size, mask, first, chunk_rows: int,
+                     filters, filter_es, stored, out, lo: int, hi: int,
+                     n_threads=N_THREADS):
+    """Decode the chunks at file offsets ``addr`` (``size`` stored bytes,
+    filter ``mask``, ``first`` row, ``chunk_rows`` rows each) of a 1-D
+    dataset of file type ``stored`` whose filter pipeline is ``filters``
+    (1 deflate, 2 shuffle by ``filter_es`` bytes, in file order), reading
+    from the open file ``fd``, into ``out`` (rows ``[lo, hi)``; a type
+    :func:`h5_writes` takes), on up to ``n_threads`` threads, no more than
+    there are chunks. Rows no chunk holds are left as they were.
+
+    Returns ``(rc, stats)``: rc 0, or :data:`H5_READ`, :data:`H5_INFLATE`
+    or :data:`H5_SIZE` for the first chunk (in row order) that failed;
+    ``stats`` the chunks and bytes inflated, the nanoseconds in zlib and
+    in the unshuffle (each summed over the threads: CPU time, not wall
+    time), the failing chunk's index into the arrays and a detail (zlib's
+    code, or the decoded length)."""
+    global H5_DECODES
+    stored = np.dtype(stored)
+    if not (isinstance(out, np.ndarray) and out.ndim == 1
+            and out.flags.c_contiguous and len(out) == hi - lo
+            and h5_writes(stored, out.dtype)):
+        raise TypeError(f"out must be a C-contiguous 1-D array of {hi - lo} "
+                        f"elements that {stored} can be written as")
+    arrays = [np.ascontiguousarray(a, np.int64)
+              for a in (addr, size, mask, first)]
+    if len({a.shape for a in arrays}) != 1 or arrays[0].ndim != 1:
+        raise ValueError("addr, size, mask and first must be equal 1-D "
+                         "shapes")
+    fids = np.ascontiguousarray(filters, np.int32)
+    fes = np.ascontiguousarray(filter_es, np.int32)
+    native_type = stored.newbyteorder("=")
+    src = _H5_CODES.get(native_type, 0)
+    dst = 0 if out.dtype == native_type else _H5_CODES[out.dtype]
+    stats = np.zeros(8, np.int64)
+    with _H5_DECODES_LOCK:
+        H5_DECODES += 1
+    rc = h5_library().mtpu_h5_decode_chunks(
+        int(fd), *arrays, len(arrays[0]), int(chunk_rows), fids, fes,
+        len(fids), stored.itemsize, src, int(not stored.isnative),
+        _ptr(out), dst, out.dtype.itemsize, int(lo), int(hi), int(n_threads),
+        stats)
+    if rc not in (0, H5_READ, H5_INFLATE, H5_SIZE):
+        raise RuntimeError(f"native HDF5 chunk decode failed (rc={rc})")
+    return rc, stats
 
 
 def available() -> bool:

@@ -2,8 +2,9 @@
 
 Each CUDA source ``csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` into ``lib<name>_<hash>.so`` in the build cache
-(:func:`build_dir`); a C++ host source (the band fill, normalize and
-``.hic`` block decoder of ``io/native``) is compiled the same way by
+(:func:`build_dir`); a C++ host source (the band fill, normalize,
+``.hic`` block decoder and HDF5 chunk decoder of ``io/native``) is
+compiled the same way by
 ``g++``. The hash covers the
 source and the flags, so an edited source rebuilds and a stale library
 is never loaded; nothing depends on the
@@ -33,9 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 GXX_LIBS = ("-lpthread",)
-# libraries one source links beside GXX_LIBS: the .hic decoder's zlib, by
-# its runtime name (no development symlink needed)
-SOURCE_LIBS = {"hic_decode.cpp": ("-l:libz.so.1",)}
+# libraries one source links beside GXX_LIBS: the .hic and HDF5 chunk
+# decoders' zlib, by its runtime name (no development symlink needed)
+SOURCE_LIBS = {"hic_decode.cpp": ("-l:libz.so.1",),
+               "h5_chunks.cpp": ("-l:libz.so.1",)}
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -8,7 +8,8 @@ costs are the builds of its native code into the build cache
 
 * ``fused_ladder`` (nvcc, ``kernels/csrc/fused_ladder.cu``), on the card
   only;
-* ``band_fill``, ``normalize`` and ``hic_decode`` (g++, ``io/native``).
+* ``band_fill``, ``normalize``, ``hic_decode`` and ``h5_chunks`` (g++,
+  ``io/native``).
 
 Usage::
 
@@ -36,7 +37,8 @@ def libraries(device) -> dict:
 
     libs = {"band_fill": (native.SRC, native.bind),
             "normalize": (native.NORM_SRC, native.bind_normalize),
-            "hic_decode": (native.HIC_SRC, native.bind_hic)}
+            "hic_decode": (native.HIC_SRC, native.bind_hic),
+            "h5_chunks": (native.H5_SRC, native.bind_h5)}
     if device.type == "cuda":
         libs["fused_ladder"] = (None, fused_ladder.bind)
     return libs

@@ -9,9 +9,9 @@ bias):
   writer's inputs, bit for bit;
 * its ``cool.read``, ``cool.select`` and ``cool.balance`` ranges open
   once a fetch, not once a chunk, and its counters count the rows and
-  the chunks;
+  the chunks, every chunk decoded by the native decoder;
 * the CLI's ``ingest`` events carry the counters (the prefetched
-  chromosome's too), and its rows are ``detect_loops_coo``'s on the plain
+  chromosome's too, ``chunks_native`` equal to ``chunks_inflated``), and its rows are ``detect_loops_coo``'s on the plain
   balance; the balanced (real-valued) band goes up as f32 after one
   refill of the one-pass u8 fill."""
 
@@ -39,7 +39,7 @@ RES = 5000
 D_PX = 200                     # -d 1 Mb, the CLI's least at 5 kb
 CHROMS = [("chr1", 520 * RES), ("chr2", 450 * RES - 9), ("chrX", 40 * RES)]
 COUNTERS = {"rows_read", "rows_kept", "chunks_inflated", "bytes_inflated",
-            "inflate_s", "unshuffle_s"}
+            "inflate_s", "unshuffle_s", "chunks_native"}
 
 
 @pytest.fixture(scope="module")
@@ -112,6 +112,8 @@ def test_ranges_open_once_a_fetch_and_counters_count(mcool):
     assert counters["chunks_inflated"] > 3 * 8
     assert counters["bytes_inflated"] >= 20 * counters["rows_read"]
     assert counters["inflate_s"] > 0 and counters["unshuffle_s"] > 0
+    # every chunk through the native decoder
+    assert counters["chunks_native"] == counters["chunks_inflated"]
 
 
 def test_the_cli_logs_the_counters_and_detects_the_balanced_band(
@@ -128,6 +130,7 @@ def test_the_cli_logs_the_counters_and_detects_the_balanced_band(
     assert [e["prefetched"] for e in ingest] == [False, True]
     for e in ingest:
         assert COUNTERS <= set(e)
+        assert e["chunks_native"] == e["chunks_inflated"] > 0
         assert e["rows_read"] == len(maps[e["chromosome"]]["count"])
         assert e["rows_kept"] == len(plain_balance(maps[e["chromosome"]])[2])
     # chr1's rows are detect_loops_coo's on the plain balance
