@@ -294,20 +294,52 @@ def cuda_ms(fn, reps: int) -> float:
 # phase 3 helpers
 # ---------------------------------------------------------------------------
 
+def compact_normalized_band(x, y, v, shape, dev, n_bins, res, d_px):
+    """The band of ``shape`` on ``dev`` as the pipeline's float32 default
+    makes it: the compact raw fill, one H2D, the device normalize."""
+    from mustache_tpu_torch.bandnorm import (
+        normalize_band_device, pad_exceptions,
+    )
+    from mustache_tpu_torch.pipeline import fill_raw_band_compact
+    from mustache_tpu_torch.sharding import upload_band
+
+    band, exc, p4 = fill_raw_band_compact(x, y, v, shape)
+    exc = None if exc is None else pad_exceptions(exc, shape[0])
+    return normalize_band_device(upload_band(band, dev), n_bins, res, d_px,
+                                 exceptions=exc, packed4=p4)[0]
+
+
+def diff_bands(x1, y1, v1, x2, y2, v2, cfg, runner):
+    """Both conditions' normalized bands on ``runner``'s one entry as the
+    differential entry places them (``pipeline.detect_blocks``): one band
+    shape, each band normalized with its own bin count. Returns ``(band1,
+    band2, n)`` with ``n`` the larger bin count."""
+    from mustache_tpu_torch.bandnorm import bucket_rows
+    from mustache_tpu_torch.detect import band_width
+    from mustache_tpu_torch.pipeline import normalized_bands
+
+    maps = ((x1, y1, v1), (x2, y2, v2))
+    ns = [int(max(np.max(x), np.max(y))) + 1 for x, y, _ in maps]
+    n, width = max(ns), cfg.chunk_size
+    shape = (bucket_rows(max(n, width)), band_width(width, cfg.distance_px))
+    (b1,), (b2,) = (normalized_bands(x, y, v, cfg, shape, n_own, runner,
+                                     normalize=True, exact=False)[0]
+                    for (x, y, v), n_own in zip(maps, ns))
+    return b1, b2, n
+
+
 def synthetic_blocks(dev, N, d_px, res, n_bins, starts, seed):
     """Sentinel-filled blocks [B, N, N] and their support, built the way the
     pipeline builds them (raw band -> device normalize -> slice -> densify
     -> sentinel fill), plus the band slices."""
     from synthetic import synthetic_hic
-    from mustache_tpu_torch.bandnorm import bucket_rows, normalize_band_device
+    from mustache_tpu_torch.bandnorm import bucket_rows
     from mustache_tpu_torch.detect import _preamble, band_width, dense_from_band
-    from mustache_tpu_torch.pipeline import fill_raw_band, upload_band
 
     x, y, v, _ = synthetic_hic(n_bins, d_px, seed=seed, n_loops=60,
                                loop_strength=3.0, density=0.95)
     shape = (bucket_rows(n_bins), band_width(N, d_px))
-    band = upload_band(fill_raw_band(x, y, v, shape), dev)
-    band, _ = normalize_band_device(band, n_bins, res, d_px)
+    band = compact_normalized_band(x, y, v, shape, dev, n_bins, res, d_px)
     slices = torch.stack([band[max(s, 0): max(s, 0) + N] for s in starts])
     cs, nz = _preamble(dense_from_band(slices), d_px)
     return cs, nz.to(torch.float32), slices
@@ -791,7 +823,7 @@ def upload_ms(band, exc, dev) -> float:
     """ms of one band upload (pinned staging + H2D) plus its padded
     exception list, until the card has it."""
     from mustache_tpu_torch.bandnorm import pad_exceptions
-    from mustache_tpu_torch.pipeline import upload_band
+    from mustache_tpu_torch.sharding import upload_band
 
     def go():
         upload_band(band, dev)
@@ -975,7 +1007,8 @@ def phase_1kb(dev):
     from mustache_tpu_torch.detect import band_width
     from mustache_tpu_torch.io import native
     from mustache_tpu_torch.kernels import fused_ladder as fl
-    from mustache_tpu_torch.pipeline import stream_band_to_device, upload_band
+    from mustache_tpu_torch.pipeline import stream_band_to_device
+    from mustache_tpu_torch.sharding import upload_band
 
     (n_bins, d_px), _ = SLICE_1KB
     t0 = time.perf_counter()
@@ -1131,7 +1164,7 @@ def make_diff_tie(det, band1, band2, starts, res):
                 continue
             out = unpack_block(det.out_spec, det.fn_band_packed(
                 band1, band2, [s]).cpu().numpy()[0])
-            for _, row, pair, nv1, nv2 in _finish_map(
+            for row, (pair, nv1, nv2) in _finish_map(
                     out, m, start=s, spec=det.spec)[1] or []:
                 if row[:2] == [b1, b2]:
                     say(f"[7] row {r[:6]} tag {r[8]}: port pair {pair!r}, "
@@ -1262,7 +1295,7 @@ def stacked_report(tag, det, band1, band2, start, d_px):
 def phase_diff(dev):
     from mustache_tpu_torch import DetectionConfig, detect_diff_loops_coo
     from mustache_tpu_torch.config import chunk_grid
-    from mustache_tpu_torch.diff import _diff_bands, build_diff_detector
+    from mustache_tpu_torch.diff import build_diff_detector
     from mustache_tpu_torch.diff_cli import SUFFIXES, main as diff_main
     from mustache_tpu_torch.pipeline import local_runner
     from mustache_tpu_torch.kernels import fused_ladder as fl
@@ -1274,8 +1307,8 @@ def phase_diff(dev):
     cfg = DetectionConfig(resolution=5000, distance_bp=2_000_000, pt=PT,
                           st=ST, pt2=PT2)
     d_px, N = cfg.distance_px, cfg.chunk_size
-    ((band1,), (band2,)), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg,
-                                             local_runner(dev))
+    band1, band2, n = diff_bands(x1, y1, v1, x2, y2, v2, cfg,
+                                 local_runner(dev))
     det = build_diff_detector(cfg, N, device=dev)
     start, _ = chunk_grid(n, N, d_px)
 
@@ -2258,17 +2291,15 @@ def row_axis_blocks():
 def chr21_dense_blocks(dev):
     """chr21 5 kb's six 2000^2 blocks, densified (on the host) from its
     band as the pipeline normalizes it on the device."""
-    from mustache_tpu_torch.bandnorm import bucket_rows, normalize_band_device
+    from mustache_tpu_torch.bandnorm import bucket_rows
     from mustache_tpu_torch.config import chunk_grid
     from mustache_tpu_torch.detect import band_width, dense_from_band
-    from mustache_tpu_torch.pipeline import fill_raw_band, upload_band
 
     (n_bins, d_px), _ = CHR21
     x, y, v = workload(CHR21)
     starts, _ = chunk_grid(n_bins, 2000, d_px)
     shape = (bucket_rows(n_bins), band_width(2000, d_px))
-    band = upload_band(fill_raw_band(x, y, v, shape), dev)
-    band, _ = normalize_band_device(band, n_bins, 5000, d_px)
+    band = compact_normalized_band(x, y, v, shape, dev, n_bins, 5000, d_px)
     slices = torch.stack([band[s:s + 2000] for s in starts])
     return dense_from_band(slices).cpu().numpy()
 
@@ -2588,7 +2619,7 @@ def phase_oct5(dev, workdir):
     from mustache_tpu_torch.detect import (
         _preamble, band_width, build_detector,
     )
-    from mustache_tpu_torch.diff import _diff_bands, build_diff_detector
+    from mustache_tpu_torch.diff import build_diff_detector
     from mustache_tpu_torch.kernels import fused_ladder as fl
     from mustache_tpu_torch.pipeline import local_runner
     from mustache_tpu_torch.sharding import make_mesh, make_runner
@@ -2699,8 +2730,8 @@ def phase_oct5(dev, workdir):
             f"{warm[0]:.3f} s; peak device memory {peak / 2**30:.2f} GiB")
         rep[f"oct5_diff_{route}_warm_s"] = warm[0]
     rep["launches_diff_oct5"] = 1
-    ((band1,), (band2,)), _, n = _diff_bands(x, y, v, x2, y2, v2, dcfg,
-                                             local_runner(dev))
+    band1, band2, n = diff_bands(x, y, v, x2, y2, v2, dcfg,
+                                 local_runner(dev))
     start, _ = chunk_grid(n, dcfg.chunk_size, dcfg.distance_px)
     ddet = build_diff_detector(dcfg, dcfg.chunk_size, device=dev)
     tie = make_diff_tie(ddet, band1, band2, start, dcfg.resolution)
@@ -2840,11 +2871,11 @@ def bh_reject(p, pt):
 def phase_tie_block(dev):
     """The tie block through ``_band_candidates`` on the card in count
     mode: overflow must be reported with sig_count >= 50, and the regrow
-    (``pipeline._maybe_regrow``) must end at sort mode's 50 rejections,
+    (``detect._maybe_regrow``) must end at sort mode's 50 rejections,
     which a numpy BH also gives."""
     from mustache_tpu_torch import DetectionConfig
     from mustache_tpu_torch import detect as td
-    from mustache_tpu_torch.pipeline import _maybe_regrow
+    from mustache_tpu_torch.detect import _maybe_regrow
 
     rng = np.random.default_rng(13)
     p = np.concatenate([np.full(TIE["tied"], TIE["p"]),
@@ -2883,7 +2914,8 @@ def phase_tie_block(dev):
 
     first = tables(TIE["K"], "count")
     final = _maybe_regrow(first, DetectionConfig(max_candidates=TIE["K"]),
-                          lambda cap: tables(cap, "count"))
+                          lambda cap: tables(cap, "count"),
+                          lambda o: int(o["sig_count"]))
     sort = tables(128, "sort")
     want = bh_reject(p, TIE["pt"])
     if int(first["sig_count"]) < TIE["tied"]:
@@ -2992,7 +3024,7 @@ def phase_bh_modes(dev):
     from mustache_tpu_torch import detect as td
     from mustache_tpu_torch.bandnorm import bucket_rows
     from mustache_tpu_torch.config import chunk_grid
-    from mustache_tpu_torch.diff import _diff_bands, build_diff_detector
+    from mustache_tpu_torch.diff import build_diff_detector
     from mustache_tpu_torch.kernels import fused_ladder as fl
     from mustache_tpu_torch.pipeline import local_runner, normalized_bands
 
@@ -3034,7 +3066,7 @@ def phase_bh_modes(dev):
         say(f"[13] {label}: {len(starts)} blocks in one batch, {n_valid} "
             f"valid candidates, the tables bit-identical between the modes")
         del band, outs
-    ((b1,), (b2,)), _, n = _diff_bands(*md, cfgd, runner)
+    b1, b2, n = diff_bands(*md, cfgd, runner)
     ddet = build_diff_detector(cfgd, cfgd.chunk_size, device=dev)
     dstarts = chunk_grid(n, cfgd.chunk_size, cfgd.distance_px)[0]
     outs = {}

@@ -19,15 +19,17 @@ From either state this module runs Benjamini-Hochberg FDR, candidate
 selection, the sparsity and enrichment filters and the 3x3 neighbour
 export on the device, packs each batch into one buffer for one D2H, and
 finishes each block on the host (clustering and emission, copied from
-``mustache_tpu/detect.py:981-1060``).
+``mustache_tpu/detect.py:981-1060``; :func:`emit_components` and
+:func:`_maybe_regrow` serve the single-map, differential and inter
+finishes alike).
 
-BH has the JAX package's two modes (``_BH_MODE``, read once from
-``MUSTACHE_TPU_BH``): ``"count"``, the default, marks the superset of the
-significant set in one O(N·Dl) pass, compacts it into the K-slot table
-and sorts only the table; ``"sort"`` sorts all N·Dl keys of a block. Both
-give the same sig_count, valid table and loop rows. Count mode decides
-overflow exactly, from a histogram of each tested pixel's least
-admitting rank, where the JAX package's one-pass test misses overflow
+BH has the JAX package's two modes (``_BH_MODE``): ``"count"``, the one
+the program runs, marks the superset of the significant set in one
+O(N·Dl) pass, compacts it into the K-slot table and sorts only the table;
+``"sort"``, the reference the tests patch in, sorts all N·Dl keys of a
+block. Both give the same sig_count, valid table and loop rows. Count
+mode decides overflow exactly, from a histogram of each tested pixel's
+least admitting rank, where the JAX package's one-pass test misses overflow
 on tied p-values (ROADMAP Queue 3 item 2). The epilogue runs once per
 batch on ``[B, N, Dl]`` band state (the JAX package vmaps it).
 """
@@ -36,7 +38,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 
 import numpy as np
 import torch
@@ -54,9 +55,10 @@ LOG2 = math.log(2.0)  # log-space image of the "untested" marker q=2
 _INF = float("inf")
 
 # BH strategy of _band_candidates (mustache_tpu/detect.py:55): "count"
-# (default: count pass + compaction of the marked set, no full-array
-# sort) or "sort" (one stable sort of all N*Dl keys). Identical loop rows.
-_BH_MODE = os.environ.get("MUSTACHE_TPU_BH", "count")
+# (count pass + compaction of the marked set, no full-array sort) or
+# "sort" (one stable sort of all N*Dl keys; the tests' reference).
+# Identical loop rows.
+_BH_MODE = "count"
 
 
 def band_width(n: int, d_px: int) -> int:
@@ -305,10 +307,7 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
     best responses this way)."""
     N, Dl = geom.N, geom.Dl
     B, M = band_logp.shape[0], N * Dl
-    bh = {"count": _bh_count, "sort": _bh_sort}.get(_BH_MODE)
-    if bh is None:
-        raise ValueError(f"MUSTACHE_TPU_BH must be count or sort, got "
-                         f"{_BH_MODE!r}")
+    bh = {"count": _bh_count, "sort": _bh_sort}[_BH_MODE]
     found = band_nz & (band_logp < _INF)
     n_tested = found.sum(dim=(-2, -1), dtype=torch.int32)
     cand_logq, flat_idx, sig_count, lookup = bh(
@@ -796,10 +795,12 @@ def build_detector(cfg: DetectionConfig, n: int, *, device,
 # (copied from mustache_tpu/detect.py:981-1060)
 # ---------------------------------------------------------------------------
 
-def _cluster_components(cands: list[dict]) -> list[list[dict]]:
-    """Group candidates whose painted 3x3 neighborhoods are 8-connected,
-    i.e. candidates within Chebyshev distance 3 (mustache.py:830-841)."""
-    parent = list(range(len(cands)))
+def _cluster_components(xs: list[int], ys: list[int]) -> list[list[int]]:
+    """Indices of the candidates at ``(xs[i], ys[i])`` grouped by
+    8-connected painted 3x3 neighborhoods, i.e. candidates within
+    Chebyshev distance 3 (mustache.py:830-841), each group in index
+    order and the groups in the order of their first index."""
+    parent = list(range(len(xs)))
 
     def find(a):
         while parent[a] != a:
@@ -812,29 +813,62 @@ def _cluster_components(cands: list[dict]) -> list[list[dict]]:
         if ra != rb:
             parent[rb] = ra
 
-    index: dict[tuple[int, int], int] = {}
-    for i, cd in enumerate(cands):
-        index[(cd["x"], cd["y"])] = i
-    for i, cd in enumerate(cands):
+    index = {(x, y): i for i, (x, y) in enumerate(zip(xs, ys))}
+    for i, (x, y) in enumerate(zip(xs, ys)):
         for dx in range(-3, 4):
             for dy in range(-3, 4):
-                j = index.get((cd["x"] + dx, cd["y"] + dy))
+                j = index.get((x + dx, y + dy))
                 if j is not None and j != i:
                     union(i, j)
 
-    groups: dict[int, list[dict]] = {}
-    for i, cd in enumerate(cands):
-        groups.setdefault(find(i), []).append(cd)
+    groups: dict[int, list[int]] = {}
+    for i in range(len(xs)):
+        groups.setdefault(find(i), []).append(i)
     return list(groups.values())
+
+
+# the painted 3x3 neighbourhood in the row-major order of a [3, 3] export
+_PAINT = tuple((dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1))
+
+
+def emit_components(cx, cy, neigh_logq, neigh_sigidx, extras=(), *,
+                    start1: int, start2: int, det_sigmas):
+    """The rows of the passing candidates at ``(cx, cy)`` with their
+    exported 3x3 neighbourhoods ``[K', 3, 3]``: per 8-connected component,
+    its painted pixels (a later candidate's value wins a shared pixel) and
+    the argmin-q pixel among them (ties: the first in row-major order),
+    emitted as ``[x + start1, y + start2, q, sigma]`` with the values of
+    each ``extras`` neighbourhood at that pixel. Returns ``[(row, extra
+    values)]`` in the reference's order (component label order ==
+    row-major order of each component's first painted pixel)."""
+    xs, ys = cx.tolist(), cy.tolist()
+    # per candidate, its 9 painted values (log q, sigma index, *extras)
+    fields = [np.asarray(a).reshape(len(xs), 9).tolist()
+              for a in (neigh_logq, neigh_sigidx, *extras)]
+    values = [list(zip(*(f[i] for f in fields))) for i in range(len(xs))]
+    rows = []
+    for comp in _cluster_components(xs, ys):
+        pixels = {}
+        for i in comp:
+            x, y = xs[i], ys[i]
+            for (dx, dy), val in zip(_PAINT, values[i]):
+                pixels[(x + dx, y + dy)] = val
+        ordered = sorted(pixels.items())  # row-major, np.argwhere order
+        best = min(range(len(ordered)), key=lambda k: (ordered[k][1][0], k))
+        (px, py), (lq, si, *ext) = ordered[best]
+        q = float(np.exp(np.float64(lq)))
+        sigma = det_sigmas[si] if si >= 0 else 1.0
+        rows.append((ordered[0][0], [px + start1, py + start2, q, sigma],
+                     tuple(ext)))
+    rows.sort(key=lambda t: t[0])
+    return [(r, ext) for _, r, ext in rows]
 
 
 def finish_block(out: dict, *, block_index: int, start: int, cfg: DetectionConfig,
                  spec: LadderSpec) -> list[list[float]]:
     """Host-side finish of one block: bail-out gates, clustering, and the
-    per-component argmin-q emission. Returns ``[x, y, q, sigma]`` rows in
-    the same order the reference produces (component label order ==
-    row-major order of each component's first painted pixel).
-    """
+    per-component argmin-q emission (:func:`emit_components`). Returns
+    ``[x, y, q, sigma]`` rows in the reference's order."""
     nz_count = int(out["nz_count"])
     if nz_count < cfg.min_nz:
         return []
@@ -844,35 +878,30 @@ def finish_block(out: dict, *, block_index: int, start: int, cfg: DetectionConfi
     passing = np.asarray(out["cand_pass"])
     if not passing.any():
         return []
-    cx = np.asarray(out["cand_x"])[passing]
-    cy = np.asarray(out["cand_y"])[passing]
-    nlq = np.asarray(out["neigh_logq"])[passing]
-    nsi = np.asarray(out["neigh_sigidx"])[passing]
+    return [r for r, _ in emit_components(
+        *(np.asarray(out[k])[passing] for k in
+          ("cand_x", "cand_y", "neigh_logq", "neigh_sigidx")),
+        start1=start, start2=start, det_sigmas=spec.det_sigmas)]
 
-    cands = [
-        {"x": int(cx[i]), "y": int(cy[i]), "nlq": nlq[i], "nsi": nsi[i]}
-        for i in range(len(cx))
-    ]
 
-    det_sigmas = spec.det_sigmas
-    rows: list[tuple[tuple[int, int], list[float]]] = []
-    for comp in _cluster_components(cands):
-        # painted pixel set with the q/scale value at each pixel
-        pixels: dict[tuple[int, int], tuple[float, int]] = {}
-        for cd in comp:
-            for dx in (-1, 0, 1):
-                for dy in (-1, 0, 1):
-                    px, py = cd["x"] + dx, cd["y"] + dy
-                    lq = float(cd["nlq"][dx + 1, dy + 1])
-                    si = int(cd["nsi"][dx + 1, dy + 1])
-                    pixels[(px, py)] = (lq, si)
-        ordered = sorted(pixels.items())  # row-major, np.argwhere order
-        best = min(range(len(ordered)), key=lambda i: (ordered[i][1][0], i))
-        (px, py), (lq, si) = ordered[best]
-        q = float(np.exp(np.float64(lq)))
-        sigma = det_sigmas[si] if si >= 0 else 1.0
-        first_pixel = ordered[0][0]
-        rows.append((first_pixel, [px + start, py + start, q, sigma]))
-
-    rows.sort(key=lambda t: t[0])
-    return [r for _, r in rows]
+def _maybe_regrow(block_out: dict, cfg: DetectionConfig, rerun,
+                  sig_count) -> dict:
+    """If the candidate table overflowed (more pixels below the q threshold
+    than capacity), rerun this single block with a larger capacity: the
+    reference selects ALL pixels with q < pt. ``sig_count``: callable
+    ``(block_out) -> int``, the block's count of significant pixels (for
+    the differential block, the larger of its two maps'); ``rerun``:
+    callable ``(capacity) -> block_out``, each call one
+    ``pipeline.regrow`` profiler range. Sort-mode BH reports the exact
+    sig_count; on overflow count-mode BH reports ``max(k*, K+1)`` with the
+    exact cutoff k* (``_bh_count``), so in either mode one rerun fits. The
+    loop is kept from the JAX package, whose count mode reports a lower
+    bound."""
+    cap = cfg.max_candidates
+    while True:
+        sig = sig_count(block_out)
+        if sig <= cap:
+            return block_out
+        cap = max(1 << (sig - 1).bit_length(), 2 * cap)
+        with torch.profiler.record_function("pipeline.regrow"):
+            block_out = rerun(cap)

@@ -26,8 +26,10 @@ differential p of its octave, and the candidate tables export ``pair``,
 (``mustache_tpu/diff.py:173-263``). Normalize follows the single-map rule
 (``pipeline.py``): on the device for the float32 default, on the host for
 float64 and ``exact_normalize``, skipped for ``normalize=False``. The
-host finish, the regrow and the block loop are copies of
-``mustache_tpu/diff.py:485-566, 607-624, 653-855``.
+host finish (``mustache_tpu/diff.py:485-566``) emits through
+``detect.emit_components``; the regrow and the block loop
+(``mustache_tpu/diff.py:607-624, 653-855``) are the single-map path's
+(``pipeline.detect_blocks``).
 
 A ``sharding.MeshRunner`` splits each batch over its mesh's entries, as
 for the single-map path; pad slots are not launched, so the last batch
@@ -41,23 +43,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from mustache_tpu_torch.bandnorm import bucket_rows
-from mustache_tpu_torch.config import (
-    DetectionConfig, block_mask_sizes, chunk_grid, clamp_distance_filter,
-)
+from mustache_tpu_torch.config import DetectionConfig, clamp_distance_filter
 from mustache_tpu_torch.detect import (
-    SENTINEL, BlockDetector, _BandGeom, _band_candidates, _cluster_components,
-    _out_spec, _pack_batched, _preamble, _slice_support, band_of,
-    band_width, build_detector, dense_from_band, host_ints,
-    out_shapes as single_out_shapes, resolve_route, thresholds, unpack_block,
+    SENTINEL, BlockDetector, _BandGeom, _band_candidates, _out_spec,
+    _pack_batched, _preamble, _slice_support, band_of, build_detector,
+    dense_from_band, emit_components, host_ints,
+    out_shapes as single_out_shapes, thresholds,
 )
 from mustache_tpu_torch.kernels.fused_ladder import _symmetric_pad
 from mustache_tpu_torch.ladder import band_blur
-from mustache_tpu_torch.pipeline import (
-    describe_runner, local_runner, normalized_bands,
-)
+from mustache_tpu_torch.pipeline import detect_blocks
 from mustache_tpu_torch.scalespace import LadderSpec
-from mustache_tpu_torch.sharding import MeshRunner
 
 _INF = float("inf")
 
@@ -234,13 +230,14 @@ def build_diff_detector(cfg: DetectionConfig, n: int, *, device,
 
 
 # ---------------------------------------------------------------------------
-# host finish (copied from mustache_tpu/diff.py:485-566)
+# host finish (mustache_tpu/diff.py:485-566)
 # ---------------------------------------------------------------------------
 
 def _finish_map(out, tag, *, start, spec):
-    """Cluster one condition's surviving candidates; returns rows with the
-    pair/v values needed for the differential call, or None when this map's
-    bail-outs fire."""
+    """Cluster one condition's surviving candidates; returns ``(passing,
+    rows)`` with ``rows`` as :func:`detect.emit_components` gives them,
+    the pair/v1/v2 values needed for the differential call beside each,
+    or None where this map's bail-outs fire."""
     passing = (np.asarray(out[f"cand_valid{tag}"])
                & np.asarray(out[f"pass_sparse{tag}"]))
     if not passing.any():
@@ -248,40 +245,12 @@ def _finish_map(out, tag, *, start, spec):
     with_enrich = passing & np.asarray(out[f"pass_enrich{tag}"])
     if not with_enrich.any():
         return passing, None
-    cx = np.asarray(out[f"cand_x{tag}"])[with_enrich]
-    cy = np.asarray(out[f"cand_y{tag}"])[with_enrich]
-    nlq = np.asarray(out[f"neigh_logq{tag}"])[with_enrich]
-    nsi = np.asarray(out[f"neigh_sigidx{tag}"])[with_enrich]
-    npair = np.asarray(out[f"neigh_pair{tag}"])[with_enrich]
-    nv1 = np.asarray(out[f"neigh_v1{tag}"])[with_enrich]
-    nv2 = np.asarray(out[f"neigh_v2{tag}"])[with_enrich]
-    cands = [{"x": int(cx[i]), "y": int(cy[i]), "nlq": nlq[i],
-              "nsi": nsi[i], "npair": npair[i], "nv1": nv1[i],
-              "nv2": nv2[i]} for i in range(len(cx))]
-    det_sigmas = spec.det_sigmas
-    rows = []
-    for comp in _cluster_components(cands):
-        pixels = {}
-        for cd in comp:
-            for dx in (-1, 0, 1):
-                for dy in (-1, 0, 1):
-                    px, py = cd["x"] + dx, cd["y"] + dy
-                    pixels[(px, py)] = (
-                        float(cd["nlq"][dx + 1, dy + 1]),
-                        int(cd["nsi"][dx + 1, dy + 1]),
-                        float(cd["npair"][dx + 1, dy + 1]),
-                        float(cd["nv1"][dx + 1, dy + 1]),
-                        float(cd["nv2"][dx + 1, dy + 1]),
-                    )
-        ordered = sorted(pixels.items())
-        best = min(range(len(ordered)), key=lambda i: (ordered[i][1][0], i))
-        (px, py), (lq, si, pair, nv1_, nv2_) = ordered[best]
-        q = float(np.exp(np.float64(lq)))
-        sigma = det_sigmas[si] if si >= 0 else 1.0
-        rows.append((ordered[0][0],
-                     [px + start, py + start, q, sigma], pair, nv1_, nv2_))
-    rows.sort(key=lambda t: t[0])
-    return passing, rows
+    cx, cy, nlq, nsi, *extras = (
+        np.asarray(out[k + tag])[with_enrich] for k in
+        ("cand_x", "cand_y", "neigh_logq", "neigh_sigidx", "neigh_pair",
+         "neigh_v1", "neigh_v2"))
+    return passing, emit_components(cx, cy, nlq, nsi, extras, start1=start,
+                                    start2=start, det_sigmas=spec.det_sigmas)
 
 
 def finish_diff_block(out: dict, *, start: int, cfg: DetectionConfig,
@@ -305,7 +274,7 @@ def finish_diff_block(out: dict, *, start: int, cfg: DetectionConfig,
 
     def split(rows, own):
         loops, diff_loops = [], []
-        for _, row, pair, nv1, nv2 in rows:
+        for row, (pair, nv1, nv2) in rows:
             loops.append(row)
             own_v, other_v = (nv1, nv2) if own == 1 else (nv2, nv1)
             if pair < cfg.pt2 and own_v > other_v:
@@ -317,58 +286,29 @@ def finish_diff_block(out: dict, *, start: int, cfg: DetectionConfig,
     return loops1, diff1, loops2, diff2
 
 
-def _maybe_regrow_diff(block_out: dict, cfg: DetectionConfig,
-                       rerun) -> dict:
-    """If either condition's candidate table overflowed, rerun this block
-    with a larger capacity (``mustache_tpu/diff.py:607-624``): the
-    reference selects ALL pixels with q < pt (diff_mustache.py:458,473).
-    ``rerun``: callable ``(capacity) -> block_out``, each call one
-    ``pipeline.regrow`` profiler range. Both BH modes report
-    at least the cutoff k* on overflow (count mode ``max(k*, K+1)``,
-    ``detect._bh_count``), so one rerun fits."""
-    cap = cfg.max_candidates
-    while True:
-        sig = max(int(block_out["sig_count1"]),
-                  int(block_out["sig_count2"]))
-        if sig <= cap:
-            return block_out
-        cap = max(1 << (sig - 1).bit_length(), 2 * cap)
-        with torch.profiler.record_function("pipeline.regrow"):
-            block_out = rerun(cap)
-
-
 # ---------------------------------------------------------------------------
 # per-chromosome orchestration
 # ---------------------------------------------------------------------------
 
-def _diff_bands(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig,
-                runner: MeshRunner, *, normalize: bool = True,
-                exact: bool = False, plan=None):
-    """Both conditions' bands on every entry of ``runner`` and what went
-    up, on a shared band shape, each normalized with its OWN bin count
-    (the window clipping at the diagonal tails depends on it,
-    ``mustache_tpu/diff.py:754-761``) by the single-map rule
-    (``pipeline.normalized_bands``; a row-shard ``plan`` gives each entry
-    its slab pair). Returns ``(per condition its band per entry,
-    descriptions, n)`` with ``n`` the larger bin count."""
-    with torch.profiler.record_function("pipeline.prepare"):
-        d_px = cfg.distance_px
-        n1 = int(max(x1.max(), y1.max())) + 1
-        n2 = int(max(x2.max(), y2.max())) + 1
-        n = max(n1, n2)
-        width = cfg.chunk_size
-        shape = (bucket_rows(max(n, width)), band_width(width, d_px))
-    bands, sent = zip(*(
-        normalized_bands(x, y, v, cfg, shape, n_own, runner,
-                         normalize=normalize, exact=exact, plan=plan)
-        for x, y, v, n_own in ((x1, y1, v1, n1), (x2, y2, v2, n2))))
-    return bands, sent, n
-
-
-def _as_coo(x, y, v):
-    return (np.ascontiguousarray(x, dtype=np.int64),
-            np.ascontiguousarray(y, dtype=np.int64),
-            np.ascontiguousarray(v, dtype=np.float64))
+def diff_block_bytes(route: str, n: int, Dl: int, itemsize: int) -> int:
+    """Device bytes one block of a differential batch holds at its peak,
+    the batch rule's unit (``pipeline.block_bytes``' twin)."""
+    if route == "kernel":
+        # 28 * n^2 + 80 * n * Dl bytes: the stacked preamble (both
+        # conditions' widened slices, sentinel copies, supports), then the
+        # difference planes, which run on every real block of the batch
+        # at once (the dense difference, its padded copies, the
+        # vertical-pass slabs and the band blurs).
+        # tools/diff_batch_memory.py measured 191.7 MB a block at n=2000,
+        # Dl=512 (127.0 MB of it the planes) and 1079.0 MB at n=4000,
+        # Dl=2048 (769.5 MB), on an NVIDIA H100 80GB HBM3 at 700 W. The
+        # epilogue runs on the whole batch: two tables' state a block,
+        # counted at 128 * n * Dl bytes more (the single-map rule's 64 * n
+        # * Dl per table).
+        return 28 * n * n + 208 * n * Dl
+    # the JAX package's XLA cap for the triple ladder: ~135 n^2 live
+    # elements of the compute dtype per block (mustache_tpu/diff.py:594-597)
+    return 135 * n * n * itemsize
 
 
 def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
@@ -381,111 +321,38 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
     as in ``pipeline.detect_loops_coo``; ``runner``: a
     ``sharding.MeshRunner`` as there (``device`` is then not read), each
     entry holding both conditions' bands (replicate) or a slab pair
-    (rowshard). The inputs are not modified. ``log``: optional callable
-    taking one message string.
+    (rowshard), each normalized with its OWN bin count (the window
+    clipping at the diagonal tails depends on it,
+    ``mustache_tpu/diff.py:754-761``). The inputs are not modified.
+    ``log``: optional callable taking one message string.
 
     Returns a list of ``(bin1, bin2, q, scale, tag)`` in block order with
     tag 1=loop1, 2=diffloop1, 3=loop2, 4=diffloop2
     (diff_mustache.py:704-715).
 
     The call is one ``diff.call`` profiler range holding the stages'
-    ranges as ``pipeline.detect_loops_coo``'s, with ``diff.finish`` in
-    place of ``pipeline.finish``."""
+    ranges as ``pipeline.detect_loops_coo``'s (the same block loop,
+    ``pipeline.detect_blocks``), with ``diff.finish`` in place of
+    ``pipeline.finish``."""
+    def finish(out, i, start, spec):
+        groups = finish_diff_block(out, start=start, cfg=cfg, spec=spec)
+        return [r + [tag] for tag, group in zip((1, 2, 3, 4), groups)
+                for r in group]
+
     with torch.profiler.record_function("diff.call"):
-        return _detect_diff_loops_coo(
-            x1, y1, v1, x2, y2, v2, cfg, normalize=normalize,
-            exact_normalize=exact_normalize, runner=runner, device=device,
-            log=log)
-
-
-def _detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg, *, normalize,
-                           exact_normalize, runner, device, log):
-    rf = torch.profiler.record_function
-    with rf("pipeline.prepare"):
-        route = resolve_route(cfg)
-        if runner is None:
-            runner = local_runner(device)
-        if len(v1) == 0 or len(v2) == 0:
-            return []
-        x1, y1, v1 = _as_coo(x1, y1, v1)
-        x2, y2, v2 = _as_coo(x2, y2, v2)
-
-        d_px = cfg.distance_px
-        # always chunk x chunk, zero-padded (diff_mustache.py:671)
-        width = cfg.chunk_size
-        n = max(int(max(x.max(), y.max())) + 1
-                for x, y in ((x1, y1), (x2, y2)))
-        start, end = chunk_grid(n, width, d_px)
-        masks = block_mask_sizes(start, end, d_px)
-        nblocks = len(start)
-        dets = runner.per_device(
-            lambda d: build_diff_detector(cfg, width, device=d))
-        plan = (runner.plan_rowshard(start, width)
-                if runner.band_placement == "rowshard" else None)
-    (bands1, bands2), sent, _ = _diff_bands(
-        x1, y1, v1, x2, y2, v2, cfg, runner, normalize=normalize,
-        exact=exact_normalize, plan=plan)
-
-    with rf("pipeline.prepare"):
-        pairs = list(zip(bands1, bands2))
-        if route == "kernel":
-            # a block of the batch holds 28 * n^2 + 80 * n * Dl bytes at
-            # its peak: the stacked preamble (both conditions' widened
-            # slices, sentinel copies, supports), then the difference
-            # planes, which run on every real block of the batch at once
-            # (the dense difference, its padded copies, the vertical-pass
-            # slabs and the band blurs). tools/diff_batch_memory.py
-            # measured 191.7 MB a block at n=2000, Dl=512 (127.0 MB of it
-            # the planes) and 1079.0 MB at n=4000, Dl=2048 (769.5 MB), on
-            # an NVIDIA H100 80GB HBM3 at 700 W. The epilogue runs on the
-            # whole batch: two tables' state a block, counted at 128 * n *
-            # Dl bytes more (the single-map rule's 64 * n * Dl per table).
-            Dl = bands1[0].shape[1]
-            Bl = runner.local_batch(
-                cfg, nblocks, per_block=28 * width * width + 208 * width * Dl)
-        else:
-            # the JAX package's XLA cap for the triple ladder: ~135 n^2
-            # live elements of the compute dtype per block
-            # (mustache_tpu/diff.py:594-597)
-            Bl = runner.local_batch(
-                cfg, nblocks,
-                per_block=135 * width * width * bands1[0].element_size())
-        if log is not None:
-            log(f"n={n} blocks={nblocks} of {width}^2 "
-                f"batch={runner.nb * Bl} (stacked {2 * Bl} slots per entry) "
-                f"{describe_runner(runner)} route={route} "
-                f"precision={cfg.precision} "
-                + " ".join(f"cond{m} {d}" for m, d in zip((1, 2), sent)))
-
-    def rerun_block(k, s, cap):
-        """Re-detect the block at local start ``s`` of entry k with a
-        larger candidate capacity, on that entry's bands or slab pair."""
-        d = build_diff_detector(cfg, width, device=runner.devices[k],
-                                max_candidates=cap)
-        row = d.fn_band_packed(*pairs[k], [s]).cpu().numpy()[0]
-        return unpack_block(d.out_spec, row)
-
-    launches = (plan.launches(Bl) if plan is not None
-                else runner.replicated_launches(start, Bl))
-    # rows tagged by block index: entries return their blocks
-    # entry-major, so block order is restored by a stable sort at the end;
-    # the next batch runs on the device while this loop finishes a batch
-    tagged = []
-    for i, k, s, row in runner.pipelined(dets, pairs, launches):
-        with rf("diff.finish"):
-            block_out = _maybe_regrow_diff(
-                unpack_block(dets[0].out_spec, row), cfg,
-                lambda cap, k=k, s=s: rerun_block(k, s, cap))
-            groups = finish_diff_block(block_out, start=start[i], cfg=cfg,
-                                       spec=dets[0].spec)
-            mask = masks[i]
-            for tag, group in zip((1, 2, 3, 4), groups):
-                for r in group:
-                    if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
-                        tagged.append((i, (int(r[0]), int(r[1]),
-                                           float(r[2]), float(r[3]), tag)))
-    tagged.sort(key=lambda t: t[0])
-    return [row for _, row in tagged]
+        return detect_blocks(
+            [(x1, y1, v1), (x2, y2, v2)], cfg, build=build_diff_detector,
+            bytes_per_block=diff_block_bytes, finish=finish,
+            emit=lambda r: (int(r[0]), int(r[1]), float(r[2]), float(r[3]),
+                            r[4]),
+            finish_range="diff.finish",
+            sig_count=lambda o: max(int(o["sig_count1"]),
+                                    int(o["sig_count2"])),
+            describe=lambda Bl, sent: (
+                f"(stacked {2 * Bl} slots per entry) "
+                + " ".join(f"cond{m} {d}" for m, d in zip((1, 2), sent))),
+            normalize=normalize, exact_normalize=exact_normalize,
+            runner=runner, device=device, log=log)
 
 
 def find_diff_loops(x1, y1, v1, x2, y2, v2, *, resolution: int = 5000,

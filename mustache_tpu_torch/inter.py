@@ -41,16 +41,16 @@ import torch.nn.functional as F
 
 from mustache_tpu_torch.config import DetectionConfig, chunk_grid
 from mustache_tpu_torch.detect import (
-    _bh_lookup, _cluster_components, _logq_from_sorted, _out_spec,
-    _pack_batched, thresholds, unpack_block,
+    _bh_lookup, _logq_from_sorted, _maybe_regrow, _out_spec, _pack_batched,
+    emit_components, thresholds, unpack_block,
 )
 from mustache_tpu_torch.device import resolve_device
 from mustache_tpu_torch.kernels.fused_ladder import (
     BLURS_PER_OCTAVE, _max3x3, _symmetric_pad,
 )
 from mustache_tpu_torch.ladder import _toeplitz
-from mustache_tpu_torch.pipeline import _batch_size
 from mustache_tpu_torch.scalespace import LadderSpec, build_ladder, ladder_tensor
+from mustache_tpu_torch.sharding import _batch_size
 
 OVERLAP = 128        # covers the ladder radius (13), NMS (1), clustering (3)
 ROWS_ONE_SHOT = 2048  # taller tiles blur in row slabs (detect.py:138-163)
@@ -356,31 +356,10 @@ def finish_inter_block(out: dict, *, start1: int, start2: int,
     passing = np.asarray(out["cand_pass"])
     if not passing.any():
         return []
-    cx = np.asarray(out["cand_x"])[passing]
-    cy = np.asarray(out["cand_y"])[passing]
-    nlq = np.asarray(out["neigh_logq"])[passing]
-    nsi = np.asarray(out["neigh_sigidx"])[passing]
-    cands = [{"x": int(cx[i]), "y": int(cy[i]), "nlq": nlq[i], "nsi": nsi[i]}
-             for i in range(len(cx))]
-
-    det_sigmas = spec.det_sigmas
-    rows = []
-    for comp in _cluster_components(cands):
-        pixels: dict[tuple[int, int], tuple[float, int]] = {}
-        for cd in comp:
-            for dx in (-1, 0, 1):
-                for dy in (-1, 0, 1):
-                    px, py = cd["x"] + dx, cd["y"] + dy
-                    pixels[(px, py)] = (float(cd["nlq"][dx + 1, dy + 1]),
-                                        int(cd["nsi"][dx + 1, dy + 1]))
-        ordered = sorted(pixels.items())
-        best = min(range(len(ordered)), key=lambda i: (ordered[i][1][0], i))
-        (px, py), (lq, si) = ordered[best]
-        q = float(np.exp(np.float64(lq)))
-        sigma = det_sigmas[si] if si >= 0 else 1.0
-        rows.append((ordered[0][0], [px + start1, py + start2, q, sigma]))
-    rows.sort(key=lambda t: t[0])
-    return [r for _, r in rows]
+    return [r for r, _ in emit_components(
+        *(np.asarray(out[k])[passing] for k in
+          ("cand_x", "cand_y", "neigh_logq", "neigh_sigidx")),
+        start1=start1, start2=start2, det_sigmas=spec.det_sigmas)]
 
 
 class _TileSource:
@@ -479,6 +458,13 @@ def detect_inter_loops_coo(x, y, v, cfg: DetectionConfig, *,
         hi = n if idx == len(starts) - 1 else ends[idx] - OVERLAP // 2
         return lo, hi
 
+    def rerun_tile(tile, cap):
+        """Re-detect one tile ``[1, chunk, chunk]`` with a larger
+        candidate capacity."""
+        grown = build_inter_detector(cfg, chunk, device=dev,
+                                     max_candidates=cap)
+        return unpack_block(grown.out_spec, grown.fn_packed(tile)[0])
+
     loops: list[list[float]] = []
     for b0 in range(0, len(tiles), B):
         idxs = tiles[b0:b0 + B]
@@ -487,14 +473,10 @@ def detect_inter_loops_coo(x, y, v, cfg: DetectionConfig, *,
         packed = det.fn_packed(blocks)
         with torch.profiler.record_function("inter.finish"):
             for bi, (i, j) in enumerate(idxs):
-                tile_out = unpack_block(det.out_spec, packed[bi])
-                sig = int(tile_out["sig_count"])
-                if sig > cfg.max_candidates:
-                    grown = build_inter_detector(
-                        cfg, chunk, device=dev,
-                        max_candidates=1 << (sig - 1).bit_length())
-                    tile_out = unpack_block(
-                        grown.out_spec, grown.fn_packed(blocks[bi:bi + 1])[0])
+                tile_out = _maybe_regrow(
+                    unpack_block(det.out_spec, packed[bi]), cfg,
+                    lambda cap, bi=bi: rerun_tile(blocks[bi:bi + 1], cap),
+                    lambda o: int(o["sig_count"]))
                 rows = finish_inter_block(tile_out, start1=s1[i],
                                           start2=s2[j], cfg=cfg,
                                           spec=det.spec)

@@ -51,7 +51,6 @@ _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-_U16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
 _P, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 
 
@@ -62,9 +61,6 @@ def bind(lib) -> None:
     sigs = {
         "mtpu_fill_band": [_P, _P, _i32, _P, _i32, _i64, _F32, _i64, _i64,
                            _i32],
-        "mtpu_fill_band_u16": [_P, _P, _i32, _F64, _i64, _U16, _i64, _i64,
-                               _i32],
-        "mtpu_values_fit_u16": [_F64, _i64, _i32],
         "mtpu_classify_values": [_F64, _i64, _i32, _I64],
         "mtpu_fill_band_compact": [_P, _P, _i32, _F64, _i64, _P, _i32, _i64,
                                    _i64, _I32, _I32, _F32, _i64, _i32, _i32,
@@ -340,25 +336,6 @@ def fill_band(x, y, v, band_out, n_threads=N_THREADS) -> None:
         band_out.shape[1], int(n_threads)), "fill_band")
 
 
-def values_fit_u16(v, n_threads=N_THREADS) -> bool:
-    """True when every value is a non-negative integer < 65536."""
-    v = _f64(v)
-    return bool(library().mtpu_values_fit_u16(v, len(v), int(n_threads)))
-
-
-def fill_band_u16(x, y, v, band_out, n_threads=N_THREADS) -> None:
-    """uint16 twin of :func:`fill_band`; the caller has established with
-    :func:`values_fit_u16` that every value fits."""
-    x, y = _xy(x, y)
-    v = _f64(v)
-    _out(band_out, (np.uint16,))
-    _count_fill()
-    _check(library().mtpu_fill_band_u16(
-        _ptr(x), _ptr(y), int(x.dtype == np.int64), v, len(v), band_out,
-        band_out.shape[0], band_out.shape[1], int(n_threads)),
-        "fill_band_u16")
-
-
 def classify_values(v, n_threads=N_THREADS) -> tuple[int, int]:
     """Exception census for the compact band: (misfit_u8, misfit_u16)
     counts of values that are not non-negative integers below 256 /
@@ -519,12 +496,6 @@ def fill_band_plain(x, y, v, band_out) -> None:
     sel = ((d >= 0) & (d < band_out.shape[1]) & (x >= 0)
            & (x < band_out.shape[0]))
     band_out[x[sel], d[sel]] = v[sel]
-
-
-def values_fit_u16_plain(v) -> bool:
-    return bool(v.size > 0 and float(v.min()) >= 0.0
-                and float(v.max()) < 65536.0
-                and not np.any(v != np.floor(v)))
 
 
 def classify_values_plain(v) -> tuple[int, int]:

@@ -2,8 +2,8 @@
 //
 // Started as a copy of the JAX package's native ingest library
 // (mustache_tpu/io/native/normalize.cpp:186-565). mtpu_fill_band,
-// mtpu_fill_band_u16, mtpu_classify_values, mtpu_values_fit_u16,
-// mtpu_classify_values4 and mtpu_pack_band4 are unchanged copies. The two
+// mtpu_classify_values, mtpu_classify_values4 and mtpu_pack_band4 are
+// unchanged copies. The two
 // compact fills differ: mtpu_fill_band_compact and
 // mtpu_fill_band_compact_range are one loop over a row window
 // (fill_compact below) that, on a COO sorted by row, walks only each
@@ -305,47 +305,6 @@ int mtpu_fill_band(const void* xs, const void* ys, int32_t xy_is64,
   return 0;
 }
 
-// uint16 variant of mtpu_fill_band for the compact raw-band transfer path:
-// integer counts < 65536 (every raw Hi-C text/.hic/.cool workload) upload
-// at half the bytes and cast back to f32 on device losslessly. Same row-
-// ownership threading / last-write-wins semantics as mtpu_fill_band.
-// Caller must have verified the values are non-negative integers < 65536
-// (mtpu_values_fit_u16); out-of-range values here would truncate silently.
-int mtpu_fill_band_u16(const void* xs, const void* ys, int32_t xy_is64,
-                       const double* vs, int64_t n_entries,
-                       uint16_t* band, int64_t n_rows, int64_t ldb,
-                       int32_t n_threads) {
-  if (n_entries < 0 || ldb <= 0) return -1;
-  auto run = [&](int64_t r0, int64_t r1) {
-    const int32_t* x32 = static_cast<const int32_t*>(xs);
-    const int32_t* y32 = static_cast<const int32_t*>(ys);
-    const int64_t* x64 = static_cast<const int64_t*>(xs);
-    const int64_t* y64 = static_cast<const int64_t*>(ys);
-    for (int64_t e = 0; e < n_entries; ++e) {
-      const int64_t x = xy_is64 ? x64[e] : static_cast<int64_t>(x32[e]);
-      if (x < r0 || x >= r1) continue;
-      const int64_t y = xy_is64 ? y64[e] : static_cast<int64_t>(y32[e]);
-      const int64_t d = y - x;
-      if (d < 0 || d >= ldb || x < 0 || x >= n_rows) continue;
-      band[x * ldb + d] = static_cast<uint16_t>(vs[e]);
-    }
-  };
-  if (n_threads <= 1 || n_entries < (1 << 16)) {
-    run(0, n_rows);
-    return 0;
-  }
-  const int64_t chunk = (n_rows + n_threads - 1) / n_threads;
-  std::vector<std::thread> pool;
-  for (int32_t t = 0; t < n_threads; ++t) {
-    const int64_t r0 = t * chunk;
-    const int64_t r1 = std::min(n_rows, r0 + chunk);
-    if (r0 >= r1) break;
-    pool.emplace_back(run, r0, r1);
-  }
-  for (auto& th : pool) th.join();
-  return 0;
-}
-
 // Exception census for the compact band transfer: counts values NOT exactly
 // representable as uint8 / uint16 (non-negative integers below 256 / 65536;
 // non-finite values never fit). out[0] = u8 misfits, out[1] = u16 misfits.
@@ -429,40 +388,6 @@ void mtpu_take_exceptions(void* held, int32_t* exc_r, int32_t* exc_c,
   }
   delete h;
 }
-
-// Threaded eligibility check for the uint16 band path: every value a
-// non-negative integer in [0, 65536). Returns 1 when eligible, 0 otherwise.
-int mtpu_values_fit_u16(const double* vs, int64_t n_entries,
-                        int32_t n_threads) {
-  std::atomic<int> ok{1};
-  auto run = [&](int64_t e0, int64_t e1) {
-    for (int64_t e = e0; e < e1; ++e) {
-      const double v = vs[e];
-      if (!(v >= 0.0) || v >= 65536.0 ||
-          v != static_cast<double>(static_cast<uint16_t>(v))) {
-        ok.store(0, std::memory_order_relaxed);
-        return;
-      }
-      if ((e & 0xFFFFF) == 0xFFFFF &&
-          !ok.load(std::memory_order_relaxed)) return;
-    }
-  };
-  if (n_threads <= 1 || n_entries < (1 << 16)) {
-    run(0, n_entries);
-    return ok.load();
-  }
-  const int64_t chunk = (n_entries + n_threads - 1) / n_threads;
-  std::vector<std::thread> pool;
-  for (int32_t t = 0; t < n_threads; ++t) {
-    const int64_t e0 = t * chunk;
-    const int64_t e1 = std::min(n_entries, e0 + chunk);
-    if (e0 >= e1) break;
-    pool.emplace_back(run, e0, e1);
-  }
-  for (auto& th : pool) th.join();
-  return ok.load();
-}
-
 
 // 4-bit census for the nibble-packed band transfer: counts values not
 // exactly representable as a 4-bit count (non-negative integers below 16).

@@ -17,6 +17,9 @@ dtype, which goes up once; ``normalize=False`` uploads the raw band in
 the compute dtype. The detection route follows from the configuration
 (``detect.resolve_route``) and is named in the plan line.
 
+The differential entry (``diff.py``) runs the same block loop
+(:func:`detect_blocks`) on its two conditions' bands.
+
 Every run goes through a ``sharding.MeshRunner``: an unsharded run is a
 one-entry mesh of its device, a sharded one splits each batch of blocks
 over the mesh's entries (``sharding.py``), each holding the band
@@ -36,12 +39,15 @@ from mustache_tpu_torch.bandnorm import (
 )
 from mustache_tpu_torch.config import DetectionConfig, block_mask_sizes, chunk_grid
 from mustache_tpu_torch.detect import (
-    band_width, build_detector, finish_block, resolve_route, unpack_block,
+    _maybe_regrow, band_width, build_detector, finish_block, resolve_route,
+    unpack_block,
 )
 from mustache_tpu_torch.device import resolve_device
 from mustache_tpu_torch.io import native
 from mustache_tpu_torch.normalize import normalize_sparse
-from mustache_tpu_torch.sharding import MeshRunner, RowShardPlan, make_mesh
+from mustache_tpu_torch.sharding import (
+    MeshRunner, RowShardPlan, make_mesh, upload_band,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,27 +68,13 @@ class Loop:
 
 
 def fill_raw_band(x, y, v, band_shape) -> np.ndarray:
-    """Scatter-fill the RAW chromosome band ``band[x, y-x] = v`` with the
-    native fill: a uint16 band when every value is an integer count below
-    2^16 (widened losslessly on the device, bandnorm.widen_band), else an
-    f32 band (``mustache_tpu/pipeline.py:55-77``)."""
+    """Scatter-fill the RAW chromosome band ``band[x, y-x] = v`` as f32
+    with the native fill: the compact fill's band where its census finds
+    no narrower encoding (``mustache_tpu/pipeline.py:55-77``)."""
     with torch.profiler.record_function("upload.fill"):
-        if native.values_fit_u16(v):
-            band = np.zeros(band_shape, np.uint16)
-            native.fill_band_u16(x, y, v, band)
-        else:
-            band = np.zeros(band_shape, np.float32)
-            native.fill_band(x, y, v, band)
+        band = np.zeros(band_shape, np.float32)
+        native.fill_band(x, y, v, band)
     return band
-
-
-def upload_band(band: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One H2D of the host band, staged through pinned memory on CUDA."""
-    with torch.profiler.record_function("upload.stage"):
-        t = torch.from_numpy(band)
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t
 
 
 # uint4 packing pays a host census and pack plus a larger exception
@@ -150,6 +142,15 @@ def _encoding(rows: int, Dl: int, ne8: int, ne16: int) -> str:
     return "u8"
 
 
+def _packs4(v, rows: int, Dl: int, ne8: int):
+    """The u4 census of a band whose census picked ``u8|u4``: ``(whether
+    nibble-packing beats u8 by 0.7x in bytes sent, its misfit count)``."""
+    with torch.profiler.record_function("upload.census"):
+        ne4 = native.classify_values4(v)
+    return (rows * Dl // 2 + ne4 * EXC_BYTES
+            < 0.7 * (rows * Dl + ne8 * EXC_BYTES)), ne4
+
+
 def _fill_by_census(x, y, v, band_shape, counts, scan=False):
     """:func:`fill_raw_band_compact` by the census: ``counts``, or
     ``native.classify_values`` taken here when None; ``scan``: the COO is
@@ -165,10 +166,7 @@ def _fill_by_census(x, y, v, band_shape, counts, scan=False):
         return fill_raw_band(x, y, v, band_shape), None, False
     packed4 = False
     if encoding == "u8|u4":
-        with rf("upload.census"):
-            ne4 = native.classify_values4(v)
-        packed4 = (rows * Dl // 2 + ne4 * EXC_BYTES
-                   < 0.7 * (rows * Dl + ne8 * EXC_BYTES))
+        packed4, ne4 = _packs4(v, rows, Dl, ne8)
     dtype, ne = (np.uint16, ne16) if encoding == "u16" else (np.uint8, ne8)
     with rf("upload.fill"):
         band = np.zeros(band_shape, dtype)
@@ -246,21 +244,17 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
     if streamable:
         with rf("upload.census"):
             counts = native.classify_values(v)
-        ne8, ne16 = counts
-        bytes8 = rows * Dl + ne8 * EXC_BYTES
+        encoding = _encoding(rows, Dl, *counts)
         # only the u8/u4 encodings stream (u16/f32 data goes one-shot,
         # with the same encoding fill_raw_band_compact would pick)
-        streamable = (bytes8 <= 2 * rows * Dl + ne16 * EXC_BYTES
-                      and bytes8 < 4 * rows * Dl)
+        streamable = encoding in ("u8", "u8|u4")
     if not streamable:
         band, exc, p4 = fill_raw_band_compact(x, y, v, band_shape, counts)
         return BandUpload(upload_band(band, device), exc, p4, 1)
 
-    ne4 = None
-    if Dl % 2 == 0:
-        with rf("upload.census"):
-            ne4 = native.classify_values4(v)
-    p4 = ne4 is not None and rows * Dl // 2 + ne4 * EXC_BYTES < 0.7 * bytes8
+    ne8 = counts[0]
+    p4, ne4 = (_packs4(v, rows, Dl, ne8) if encoding == "u8|u4"
+               else (False, None))
     pin = device.type == "cuda"
     width = Dl // 2 if p4 else Dl
     band_dev = torch.empty((rows, width), dtype=torch.uint8, device=device)
@@ -296,26 +290,9 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
                       len(staged))
 
 
-def _batch_size(cfg: DetectionConfig, nblocks: int, device: torch.device,
-                per_block: int, reserve: int = 0, share: int = 1) -> int:
-    """Blocks per batch. On CUDA, from free device memory: half of it,
-    split among the ``share`` mesh entries on the device, less ``reserve``
-    bytes of per-batch scratch, over ``per_block`` bytes a block holds at
-    its peak; at most 16 blocks. On the CPU, 2 (as the JAX package)."""
-    if cfg.block_batch:
-        return cfg.block_batch
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        cap = max(1, min(16, int((0.5 * free / share - reserve)
-                                 // per_block)))
-    else:
-        cap = 2
-    return min(cap, nblocks)
-
-
 def block_bytes(route: str, n: int, Dl: int, itemsize: int) -> int:
     """Device bytes one block of a batch holds at its peak, the batch
-    rule's unit (:func:`_batch_size`)."""
+    rule's unit (``sharding._batch_size``)."""
     if route == "kernel":
         # about 16 * n^2 bytes (the f32 dense block and its sentinel copy,
         # the f32 support mask, the bool mask) plus about 64 * n * Dl
@@ -421,31 +398,62 @@ def detect_loops_coo(x, y, v, cfg: DetectionConfig, *, normalize: bool = True,
     modified. ``log``: optional callable taking one message string.
 
     The call is one ``pipeline.call`` profiler range; its stages are
-    ranges inside it: ``pipeline.prepare`` (twice: up to the band, and
-    the batch size after it), ``pipeline.upload``, ``pipeline.normalize``,
-    ``mesh.launch`` and ``mesh.collect`` per batch, ``pipeline.finish``
-    per block (with a ``pipeline.regrow`` per rerun)."""
+    ranges inside it (:func:`detect_blocks`): ``pipeline.prepare`` (twice:
+    up to the band, and the batch size after it), ``pipeline.upload``,
+    ``pipeline.normalize``, ``mesh.launch`` and ``mesh.collect`` per
+    batch, ``pipeline.finish`` per block (with a ``pipeline.regrow`` per
+    rerun)."""
+    def finish(out, i, start, spec):
+        return finish_block(out, block_index=i, start=start, cfg=cfg,
+                            spec=spec)
+
     with torch.profiler.record_function("pipeline.call"):
-        return _detect_loops_coo(x, y, v, cfg, normalize=normalize,
-                                 exact_normalize=exact_normalize,
-                                 runner=runner, device=device, log=log)
+        return detect_blocks(
+            [(x, y, v)], cfg, build=build_detector,
+            bytes_per_block=block_bytes, finish=finish,
+            emit=lambda r: Loop(int(r[0]), int(r[1]), float(r[2]),
+                                float(r[3])),
+            finish_range="pipeline.finish",
+            sig_count=lambda o: int(o["sig_count"]),
+            describe=lambda Bl, sent: sent[0],
+            normalize=normalize, exact_normalize=exact_normalize,
+            runner=runner, device=device, log=log)
 
 
-def _detect_loops_coo(x, y, v, cfg, *, normalize, exact_normalize, runner,
-                      device, log):
+def detect_blocks(coos, cfg: DetectionConfig, *, build, bytes_per_block,
+                  finish, emit, finish_range: str, sig_count, describe,
+                  normalize: bool, exact_normalize: bool, runner, device,
+                  log):
+    """The block loop of one chromosome given as one COO map or as several
+    (the conditions of the differential call), on the chunk grid of the
+    largest bin count ``n``: each map's band is normalized with its own
+    bin count and placed on every entry of ``runner`` (or of the local
+    runner of ``device``); the blocks go over the mesh in batches sized
+    by ``bytes_per_block(route, chunk, Dl, itemsize)``, each entry running
+    ``build(cfg, chunk, device=, max_candidates=)``'s ``fn_band_packed``
+    on its bands; the host finishes each block as the next batch runs.
+
+    Per block, in a ``finish_range`` profiler range: the regrow
+    (:func:`_maybe_regrow` with ``sig_count``), then ``finish(out, block
+    index, start, spec)``'s rows ``[x, y, ...]``; those the block owns
+    (past its overlap mask) go out as ``emit(row)``, in block order.
+    ``describe(batch per entry, what each map sent up)``: the tail of the
+    plan line given to ``log``."""
     rf = torch.profiler.record_function
     with rf("pipeline.prepare"):
         route = resolve_route(cfg)
         if runner is None:
             runner = local_runner(device)
-        if len(v) == 0:
+        if any(len(c[2]) == 0 for c in coos):
             return []
-        x = np.ascontiguousarray(x, dtype=np.int64)
-        y = np.ascontiguousarray(y, dtype=np.int64)
-        v = np.ascontiguousarray(v, dtype=np.float64)
+        coos = [(np.ascontiguousarray(x, dtype=np.int64),
+                 np.ascontiguousarray(y, dtype=np.int64),
+                 np.ascontiguousarray(v, dtype=np.float64))
+                for x, y, v in coos]
 
         d_px = cfg.distance_px
-        n = int(max(x.max(), y.max())) + 1
+        ns = [int(max(x.max(), y.max())) + 1 for x, y, _ in coos]
+        n = max(ns)
         # blocks are ALWAYS chunk x chunk: when n <= chunk the reference
         # still densifies into a chunk x chunk zero-padded matrix
         # (mustache.py:923)
@@ -453,74 +461,55 @@ def _detect_loops_coo(x, y, v, cfg, *, normalize, exact_normalize, runner,
         start, end = chunk_grid(n, width, d_px)
         masks = block_mask_sizes(start, end, d_px)
         nblocks = len(start)
-        detectors = runner.per_device(
-            lambda d: build_detector(cfg, width, device=d))
+        detectors = runner.per_device(lambda d: build(cfg, width, device=d))
 
         # rows ride the JAX package's bucket ladder (pad rows are inert)
         band_shape = (bucket_rows(max(n, width)), band_width(width, d_px))
         plan = (runner.plan_rowshard(start, width)
                 if runner.band_placement == "rowshard" else None)
-    bands, sent = normalized_bands(x, y, v, cfg, band_shape, n, runner,
-                                   normalize=normalize, exact=exact_normalize,
-                                   plan=plan)
+    placed, sent = zip(*(
+        normalized_bands(x, y, v, cfg, band_shape, n_own, runner,
+                         normalize=normalize, exact=exact_normalize,
+                         plan=plan)
+        for (x, y, v), n_own in zip(coos, ns)))
+    bands = list(zip(*placed))          # per entry, its band of each map
 
     with rf("pipeline.prepare"):
-        per_block = block_bytes(route, width, band_shape[1],
-                                bands[0].element_size())
+        per_block = bytes_per_block(route, width, band_shape[1],
+                                    bands[0][0].element_size())
         Bl = runner.local_batch(cfg, nblocks, per_block)
         if log is not None:
             log(f"n={n} blocks={nblocks} of {width}^2 "
                 f"batch={runner.nb * Bl} {describe_runner(runner)} "
-                f"route={route} precision={cfg.precision} {sent}")
+                f"route={route} precision={cfg.precision} "
+                f"{describe(Bl, sent)}")
 
     def rerun_block(k, s, cap):
         """Re-detect the block at local start ``s`` of entry k with a
-        larger candidate capacity, on that entry's band or slab."""
-        det = build_detector(cfg, width, device=runner.devices[k],
-                             max_candidates=cap)
-        row = det.fn_band_packed(bands[k], [s]).cpu().numpy()[0]
+        larger candidate capacity, on that entry's bands or slabs."""
+        det = build(cfg, width, device=runner.devices[k], max_candidates=cap)
+        row = det.fn_band_packed(*bands[k], [s]).cpu().numpy()[0]
         return unpack_block(det.out_spec, row)
 
     launches = (plan.launches(Bl) if plan is not None
                 else runner.replicated_launches(start, Bl))
-    spec = detectors[0].out_spec
+    out_spec, spec = detectors[0].out_spec, detectors[0].spec
     # rows tagged by block index: entries return their blocks
     # entry-major, so block order is restored by a stable sort at the end;
     # the next batch runs on the device while this loop finishes a batch
-    tagged: list[tuple[int, Loop]] = []
+    tagged = []
     for i, k, s, row in runner.pipelined(detectors, bands, launches):
-        with rf("pipeline.finish"):
+        with rf(finish_range):
             block_out = _maybe_regrow(
-                unpack_block(spec, row), cfg,
-                lambda cap, k=k, s=s: rerun_block(k, s, cap))
-            rows = finish_block(block_out, block_index=i, start=start[i],
-                                cfg=cfg, spec=detectors[0].spec)
-            mask = masks[i]
-            for r in rows:
-                if r[0] >= start[i] + mask or r[1] >= start[i] + mask:
-                    tagged.append((i, Loop(int(r[0]), int(r[1]),
-                                           float(r[2]), float(r[3]))))
+                unpack_block(out_spec, row), cfg,
+                lambda cap, k=k, s=s: rerun_block(k, s, cap), sig_count)
+            # the block owns the rows past its overlap mask
+            own_from = start[i] + masks[i]
+            for r in finish(block_out, i, start[i], spec):
+                if r[0] >= own_from or r[1] >= own_from:
+                    tagged.append((i, emit(r)))
     tagged.sort(key=lambda t: t[0])
-    return [lp for _, lp in tagged]
-
-
-def _maybe_regrow(block_out: dict, cfg: DetectionConfig, rerun) -> dict:
-    """If the candidate table overflowed (more pixels below the q threshold
-    than capacity), rerun this single block with a larger capacity.
-    ``rerun``: callable ``(capacity) -> block_out``, each call one
-    ``pipeline.regrow`` profiler range. Sort-mode BH reports the exact
-    sig_count; on overflow count-mode BH reports ``max(k*, K+1)`` with the
-    exact cutoff k* (``detect._bh_count``), so in either mode one rerun
-    fits. The loop is kept from the JAX package, whose count mode reports
-    a lower bound."""
-    cap = cfg.max_candidates
-    while True:
-        sig = int(block_out["sig_count"])
-        if sig <= cap:
-            return block_out
-        cap = max(1 << (sig - 1).bit_length(), 2 * cap)
-        with torch.profiler.record_function("pipeline.regrow"):
-            block_out = rerun(cap)
+    return [row for _, row in tagged]
 
 
 def write_loops(path: str, per_chrom: Iterable[tuple[str, str, int, Sequence[Loop]]]):

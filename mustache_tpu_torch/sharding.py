@@ -169,6 +169,32 @@ class RowShardPlan:
         return out
 
 
+def _batch_size(cfg, nblocks: int, device: torch.device, per_block: int,
+                reserve: int = 0, share: int = 1) -> int:
+    """Blocks per batch. On CUDA, from free device memory: half of it,
+    split among the ``share`` mesh entries on the device, less ``reserve``
+    bytes of per-batch scratch, over ``per_block`` bytes a block holds at
+    its peak; at most 16 blocks. On the CPU, 2 (as the JAX package)."""
+    if cfg.block_batch:
+        return cfg.block_batch
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        cap = max(1, min(16, int((0.5 * free / share - reserve)
+                                 // per_block)))
+    else:
+        cap = 2
+    return min(cap, nblocks)
+
+
+def upload_band(band: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One H2D of the host band, staged through pinned memory on CUDA."""
+    with torch.profiler.record_function("upload.stage"):
+        t = torch.from_numpy(band)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
+
+
 def _to_host(out: torch.Tensor):
     """``(host tensor, event or None)``: a CUDA tensor's copy queued into
     pinned host memory with an event recorded after it; a CPU tensor is
@@ -232,9 +258,7 @@ class MeshRunner:
         """Blocks per entry and launch: ``cfg.block_batch`` split over the
         entries when set, else the least that any device's own free
         memory allows, shared among the entries on that device
-        (``pipeline._batch_size``)."""
-        from mustache_tpu_torch.pipeline import _batch_size
-
+        (:func:`_batch_size`)."""
         if cfg.block_batch:
             return -(-cfg.block_batch // self.nb)
         local = max(1, -(-nblocks // self.nb))
@@ -256,8 +280,6 @@ class MeshRunner:
         """One copy of ``band`` ([rows, Dl], host array or tensor) on
         every entry. A tensor already on the first entry's device serves
         that entry; the others get copies (device to device)."""
-        from mustache_tpu_torch.pipeline import upload_band
-
         if isinstance(band, np.ndarray):
             return [upload_band(band, d) for d in self.devices]
         return [band if k == 0 and band.device == d
@@ -275,8 +297,6 @@ class MeshRunner:
                             plan: RowShardPlan) -> list[torch.Tensor]:
         """Upload entry i's slab to entry i only (total H2D ~ one band
         plus the overlaps); logs a ``rowshard_band`` event."""
-        from mustache_tpu_torch.pipeline import upload_band
-
         slabs = [plan.slab(band, i) for i in range(plan.nd)]
         self.last_band_event = dict(
             chips=plan.nd, per_chip_mb=round(slabs[0].nbytes / 1e6, 2),
@@ -306,9 +326,9 @@ class MeshRunner:
 
     def launch(self, detectors, bands, idxs, starts_local):
         """Launch one batch over the mesh: entry k runs ``detectors[k].
-        fn_band_packed(*bands[k], starts)`` (``bands[k]``: the entry's
-        band or slab, or a tuple of the two conditions' for the
-        differential detector) on its real slots of ``starts_local[k]``
+        fn_band_packed(*bands[k], starts)`` (``bands[k]``: a tuple of the
+        entry's band or slab of each map, one for the single-map detector
+        and two for the differential one) on its real slots of ``starts_local[k]``
         (pad slots are dropped, an entry without real slots is skipped),
         then queues the packed buffer's copy to pinned host memory and
         records an event after it (on the CPU the buffer is the host
@@ -322,11 +342,9 @@ class MeshRunner:
                 if not slots:
                     continue
                 local = [int(starts_local[k, j]) for j in slots]
-                band = (bands[k] if isinstance(bands[k], tuple)
-                        else (bands[k],))
                 before = fused_ladder.LAUNCHES
                 with _on(dev):
-                    out = detectors[k].fn_band_packed(*band, local)
+                    out = detectors[k].fn_band_packed(*bands[k], local)
                     host, done = _to_host(out)
                 self.launches[k * self.nr] += fused_ladder.LAUNCHES - before
                 pending.append((k, slots, local, host, done))

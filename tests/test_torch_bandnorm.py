@@ -9,7 +9,7 @@ import torch
 from mustache_tpu.bandnorm import normalize_band_device as jax_normalize
 from mustache_tpu.detect import band_width
 from mustache_tpu_torch.bandnorm import bucket_rows, normalize_band_device
-from mustache_tpu_torch.pipeline import fill_raw_band
+from mustache_tpu_torch.pipeline import fill_raw_band, fill_raw_band_compact
 from synthetic import synthetic_hic
 import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
@@ -45,10 +45,13 @@ def test_normalize_band_matches_jax(n, d_px, res, dtype):
 
 
 def test_fill_raw_band_picks_u16_and_matches_f32():
+    """Counts that all misfit u8 go as a u16 band without exceptions; its
+    widened normalize is the f32 band's bit for bit."""
     x, y, v, _ = synthetic_hic(600, 100, seed=4, n_loops=0)  # integer counts
+    v = v * 256.0                  # 256..14848: every count misfits u8
     shape = (bucket_rows(600), band_width(600, 100))
-    b16 = fill_raw_band(x, y, v, shape)
-    assert b16.dtype == np.uint16
+    b16, exc, packed4 = fill_raw_band_compact(x, y, v, shape)
+    assert b16.dtype == np.uint16 and exc is None and not packed4
     bf = fill_raw_band(x, y, v + 0.5, shape)
     assert bf.dtype == np.float32
     np.testing.assert_array_equal(b16.astype(np.float32) + (bf != 0) * 0.5,

@@ -36,7 +36,7 @@ from mustache_tpu_torch import (
 )
 from mustache_tpu_torch import detect as tdetect
 from mustache_tpu_torch import diff as tdiff
-from mustache_tpu_torch.pipeline import _maybe_regrow
+from mustache_tpu_torch.detect import _maybe_regrow
 from oracle import bh_fdr
 from synthetic import synthetic_hic
 import torch_port_cases as C
@@ -189,7 +189,8 @@ def _regrown(p, K, pt, monkeypatch):
     cfg = DetectionConfig(max_candidates=K)
     return first, _maybe_regrow(
         first, cfg, lambda cap: _tables(p, cap, pt, "count",
-                                        monkeypatch)[0])
+                                        monkeypatch)[0],
+        lambda o: int(o["sig_count"]))
 
 
 def _bh_rejections(p, pt, cells):

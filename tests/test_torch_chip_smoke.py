@@ -239,9 +239,7 @@ def test_diff_tie_reads_the_port_block():
 
     from mustache_tpu_torch import DetectionConfig
     from mustache_tpu_torch.detect import unpack_block
-    from mustache_tpu_torch.diff import (
-        _diff_bands, _finish_map, build_diff_detector,
-    )
+    from mustache_tpu_torch.diff import _finish_map, build_diff_detector
     from mustache_tpu_torch.pipeline import local_runner
     from synthetic import synthetic_hic
 
@@ -250,8 +248,8 @@ def test_diff_tie_reads_the_port_block():
     cfg = DetectionConfig(resolution=5000, distance_bp=500_000, pt=0.2,
                           st=0.6, pt2=0.2)
     cpu = torch.device("cpu")
-    ((b1,), (b2,)), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg,
-                                       local_runner(cpu))
+    b1, b2, n = chip_smoke.diff_bands(x1, y1, v1, x2, y2, v2, cfg,
+                                      local_runner(cpu))
     det = build_diff_detector(cfg, cfg.chunk_size, device=cpu)
     packed = det.fn_band_packed(b1, b2, [0])         # the one block
     calls = []
@@ -263,7 +261,7 @@ def test_diff_tie_reads_the_port_block():
                                 spec=det.spec, fn_band_packed=fn_band_packed)
     _, rows = _finish_map(unpack_block(det.out_spec, packed.numpy()[0]), "1",
                           start=0, spec=det.spec)
-    x, y, q, sigma = rows[0][1]
+    x, y, q, sigma = rows[0][0]
     row = chip_smoke.diff_tsv_rows([(x, y, q, sigma, 2)], "chr1",
                                    cfg.resolution)[0]
     tie = chip_smoke.make_diff_tie(spy, b1, b2, [0], cfg.resolution)
@@ -271,7 +269,7 @@ def test_diff_tie_reads_the_port_block():
     orig = chip_smoke.say
     chip_smoke.say = said.append
     try:
-        assert tie(row) is chip_smoke.diff_near_tie(*rows[0][2:])
+        assert tie(row) is chip_smoke.diff_near_tie(*rows[0][1])
         assert tie(["chr1", "99995000", "", "chr1", "99999000"] + row[5:]) \
             is False
     finally:

@@ -122,6 +122,61 @@ def test_packed_finish_block_rows_match_jax(monkeypatch):
                                [r[2] for r in rows_w], rtol=2e-4)
 
 
+@pytest.mark.parametrize("entry", ["detect", "diff", "inter"])
+def test_one_emission_gives_every_finish_its_rows(entry, monkeypatch):
+    """One candidate table through the single-map, differential and inter
+    finishes: each gives the JAX package's rows, and its loop rows are
+    those of the shared emission (``detect.emit_components``). The diff
+    reads the table as both conditions' with seeded pair, v1 and v2
+    neighbourhoods; the inter tile starts its columns elsewhere."""
+    import mustache_tpu.diff as jdiff
+    import mustache_tpu.inter as jinter
+    from mustache_tpu_torch import diff as tdiff, inter as tinter
+
+    cfg, spec, _, got = _run_both(256, 64, 7, 0, monkeypatch)
+    cfg = cfg.with_(pt2=0.1)
+    jcfg = jdetect.DetectionConfig(**{
+        f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+    jspec = build_ladder(cfg.octave_values)
+    start1, start2 = 1000, (3000 if entry == "inter" else 1000)
+    passing = got["cand_pass"]
+    emitted = tdetect.emit_components(
+        *(got[k][passing] for k in
+          ("cand_x", "cand_y", "neigh_logq", "neigh_sigidx")),
+        start1=start1, start2=start2, det_sigmas=spec.det_sigmas)
+    rows = [r for r, _ in emitted]
+    assert len(rows) > 0
+    if entry == "detect":
+        got_rows = tdetect.finish_block(got, block_index=0, start=start1,
+                                        cfg=cfg, spec=spec)
+        assert got_rows == jdetect.finish_block(
+            got, block_index=0, start=start1, cfg=jcfg, spec=jspec)
+        assert got_rows == rows
+    elif entry == "inter":
+        got_rows = tinter.finish_inter_block(got, start1=start1,
+                                             start2=start2, cfg=cfg,
+                                             spec=spec)
+        assert got_rows == jinter.finish_inter_block(
+            got, start1=start1, start2=start2, cfg=jcfg, spec=jspec)
+        assert got_rows == rows
+    else:
+        rng = np.random.default_rng(3)
+        shape = got["neigh_logq"].shape
+        extras = {"neigh_pair": rng.uniform(0.0, 0.3, shape),
+                  "neigh_v1": rng.random(shape), "neigh_v2": rng.random(shape)}
+        out = {"nz1_count": got["nz_count"], "nz2_count": got["nz_count"]}
+        for m in "12":
+            out.update({k + m: a for k, a in got.items()})
+            out.update({k + m: a.astype(np.float32)
+                        for k, a in extras.items()})
+        groups = tdiff.finish_diff_block(out, start=start1, cfg=cfg,
+                                         spec=spec)
+        assert groups == jdiff.finish_diff_block(out, start=start1, cfg=jcfg,
+                                                 spec=jspec)
+        assert groups[0] == groups[2] == rows
+        assert 0 < len(groups[1]) < len(rows)
+
+
 @pytest.mark.parametrize("case", ["ties", "random"])
 def test_bh_logq_matches_statsmodels_formula(case):
     """Exact BH on tied p (the case the JAX package's count-mode overflow

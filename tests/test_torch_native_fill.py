@@ -58,10 +58,6 @@ def test_census_matches_twin_and_jax(case):
         == jnative.classify_values(v)
     assert tn.classify_values4(v) == tn.classify_values4_plain(v) \
         == jnative.classify_values4(v)
-    fit = tn.values_fit_u16(v[:-6])
-    assert fit == tn.values_fit_u16_plain(v[:-6]) \
-        == jnative.values_fit_u16(v[:-6])
-    assert not tn.values_fit_u16(v)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -132,8 +128,9 @@ def test_pack_band4(seed):
 
 @pytest.mark.parametrize("vdtype", [np.float64, np.float32])
 def test_fill_band_f32_and_u16(vdtype):
-    """The f32 and u16 fills, duplicates included (last write wins as in
-    input order), against the twin and the JAX library."""
+    """The f32 fill, duplicates included (last write wins as in input
+    order), against the twin and the JAX library, of fractional values
+    and of counts (the u16 band is ``test_fill_band_compact``'s)."""
     rows, Dl = 130, 40
     x, y, v = _coo(rows, Dl, seed=6, floats=30, out_of_band=10)
     x, y, v = np.concatenate([x, x[:50]]), np.concatenate([y, y[:50]]), \
@@ -147,10 +144,10 @@ def test_fill_band_f32_and_u16(vdtype):
     np.testing.assert_array_equal(got, jax)
 
     vi = np.floor(np.abs(v.astype(np.float64)))
-    u16, twin16 = (np.zeros((rows, Dl), np.uint16) for _ in range(2))
-    tn.fill_band_u16(x, y, vi, u16)
-    tn.fill_band_plain(x, y, vi, twin16)
-    np.testing.assert_array_equal(u16, twin16)
+    counts, twin = (np.zeros((rows, Dl), np.float32) for _ in range(2))
+    tn.fill_band(x, y, vi, counts)
+    tn.fill_band_plain(x, y, vi, twin)
+    np.testing.assert_array_equal(counts, twin)
 
 
 def test_fill_counts_and_rejects_bad_buffers():

@@ -15,7 +15,7 @@ import torch
 import torch_port_cases as C
 from hic_writer import write_hic
 from mustache_tpu_torch import (
-    DetectionConfig, detect_diff_loops_coo, detect_loops_coo, diff, pipeline,
+    DetectionConfig, detect_diff_loops_coo, detect_loops_coo, pipeline,
 )
 from mustache_tpu_torch.cli import main
 from synthetic import synthetic_hic
@@ -148,19 +148,18 @@ def test_one_regrow_range_a_rerun(entry, one_map, two_maps, detect_rows,
                                   diff_rows, monkeypatch, tmp_path):
     """At a capacity of 4 candidates blocks overflow; each rerun is one
     ``pipeline.regrow`` range inside the block's finish, and the rows are
-    those of the default capacity."""
-    mod, name = ((pipeline, "_maybe_regrow") if entry == "detect"
-                 else (diff, "_maybe_regrow_diff"))
-    real = getattr(mod, name)
+    those of the default capacity. Both entries regrow through the one
+    block loop's ``_maybe_regrow``."""
+    real = pipeline._maybe_regrow
     reruns = []
 
-    def counted(block_out, cfg, rerun):
+    def counted(block_out, cfg, rerun, sig_count):
         def again(cap):
             reruns.append(cap)
             return rerun(cap)
-        return real(block_out, cfg, again)
+        return real(block_out, cfg, again, sig_count)
 
-    monkeypatch.setattr(mod, name, counted)
+    monkeypatch.setattr(pipeline, "_maybe_regrow", counted)
     cfg = CFG.with_(max_candidates=4)
     if entry == "detect":
         rows, spans = profiled(

@@ -39,7 +39,7 @@ import chip_smoke  # noqa: E402
 import torch_port_cases  # noqa: E402,F401  (one torch thread per worker)
 from mustache_tpu.bandnorm import normalize_band_device as jax_normalize  # noqa: E402
 from mustache_tpu_torch import DetectionConfig, detect_loops_coo  # noqa: E402
-from mustache_tpu_torch import bandnorm, pipeline  # noqa: E402
+from mustache_tpu_torch import bandnorm, pipeline, sharding  # noqa: E402
 from mustache_tpu_torch.detect import band_width  # noqa: E402
 from synthetic import synthetic_hic  # noqa: E402
 
@@ -160,9 +160,9 @@ def test_pipelined_batches_with_a_regrow(five_blocks, monkeypatch):
     seen = []
     real = pipeline._maybe_regrow
 
-    def spy(block_out, cfg_, rerun):
-        seen.append(int(block_out["sig_count"]))
-        return real(block_out, cfg_, rerun)
+    def spy(block_out, cfg_, rerun, sig_count):
+        seen.append(sig_count(block_out))
+        return real(block_out, cfg_, rerun, sig_count)
 
     monkeypatch.setattr(pipeline, "_maybe_regrow", spy)
     K = 16
@@ -191,7 +191,7 @@ def test_whole_chromosome_geometry_and_batches(monkeypatch):
     for free, batch, batches in ((78e9, 16, (2, 8)), (20e9, 12, (2, 11))):
         monkeypatch.setattr(torch.cuda, "mem_get_info",
                             lambda dev, free=free: (int(free), int(80e9)))
-        got = [pipeline._batch_size(cfg, blocks, torch.device("cuda"),
+        got = [sharding._batch_size(cfg, blocks, torch.device("cuda"),
                                     per_block) for blocks in (23, 124)]
         assert got == [batch, batch]
         assert tuple(-(-blocks // b) for blocks, b in

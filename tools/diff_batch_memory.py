@@ -63,8 +63,9 @@ def measure(label, precision):
     from mustache_tpu_torch import DetectionConfig
     from mustache_tpu_torch.config import chunk_grid
     from mustache_tpu_torch.detect import _preamble, dense_from_band
+    from chip_smoke import diff_bands
     from mustache_tpu_torch.diff import (
-        _diff_bands, build_diff_detector, diff_p_band, diff_planes,
+        build_diff_detector, diff_p_band, diff_planes,
     )
     from mustache_tpu_torch.pipeline import local_runner
 
@@ -80,8 +81,8 @@ def measure(label, precision):
     cfg = DetectionConfig(resolution=res, distance_bp=2_000_000, pt=0.1,
                           st=0.8, pt2=0.1, precision=precision)
     N, d_px = cfg.chunk_size, cfg.distance_px
-    ((band1,), (band2,)), _, n = _diff_bands(x1, y1, v1, x2, y2, v2, cfg,
-                                             local_runner(dev))
+    band1, band2, n = diff_bands(x1, y1, v1, x2, y2, v2, cfg,
+                                 local_runner(dev))
     det = build_diff_detector(cfg, N, device=dev)
     start, _ = chunk_grid(n, N, d_px)
     taps = det.taps[diff_planes(det.spec)]

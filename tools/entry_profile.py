@@ -12,14 +12,11 @@ kernel launches and the copies and sets. Prints the card's name and power
 limit, then one line ``AB {json}``. Needs a CUDA card; imports nothing
 of JAX.
 
-    python tools/entry_profile.py CHECKOUT LABEL [--bh count|sort]
-        [--whole --maps DIR]
+    python tools/entry_profile.py CHECKOUT LABEL [--whole --maps DIR]
 
 To hold a change against its parent on one card, unpack the parent into
 a git-ignored directory (``git archive``) and run, in one call, parent,
-change, change, parent, each in its own process. ``--bh`` sets
-``MUSTACHE_TPU_BH`` before the package is imported (a checkout without
-the switch ignores it). ``--whole`` adds ``chip_smoke.py`` phase 14's
+change, change, parent, each in its own process. ``--whole`` adds ``chip_smoke.py`` phase 14's
 whole chromosomes at 1 kb (chr21 and chr1; the workloads of this
 script's own checkout) with each call's peak device memory; their maps
 are made once and kept in ``--maps`` (``.npz``) for the later processes.
@@ -108,14 +105,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkout")
     ap.add_argument("label")
-    ap.add_argument("--bh", choices=("count", "sort"))
     ap.add_argument("--whole", action="store_true")
     ap.add_argument("--maps", default=None)
     args = ap.parse_args()
     if args.whole and not args.maps:
         ap.error("--whole needs --maps")
-    if args.bh:
-        os.environ["MUSTACHE_TPU_BH"] = args.bh
     root = os.path.abspath(args.checkout)
     sys.path[:0] = [root, os.path.join(root, "tests")]
 
@@ -155,8 +149,7 @@ def main():
     if args.whole:
         for name, (fn, cfg) in whole_calls(args.maps).items():
             calls[name] = (fn, "detect.epilogue")
-    out = {"label": args.label, "bh": args.bh or "default",
-           "device": torch.cuda.get_device_name(0)}
+    out = {"label": args.label, "device": torch.cuda.get_device_name(0)}
     for name, (fn, range_name) in calls.items():
         rows = fn()
         walls = []
