@@ -25,21 +25,33 @@ weight[bin1] * weight[bin2]; NaN weights produce NaN values which the
 caller's positivity filter drops (the reference reaches the same end state
 through nan_to_num + ``val > 0``, mustache.py:427-487).
 
-A fetch opens three profiler ranges, once each: ``cool.read``
-(the index slice and the three pixel columns, inflated), ``cool.select``
-(the band or rectangle kept, bins shifted to the chromosome's) and
-``cool.balance`` (the weights read and applied, and the drop of masked,
-non-finite and non-positive values; without balancing that drop is part
-of ``cool.select``). :attr:`CoolFile.counters` adds up the pixel rows
-read and kept and the HDF5 reader's inflate counters.
+The band or rectangle keep, the shift of the bins to the chromosomes'
+own, the balance and the drop are one threaded native pass over the
+decoded columns (``native.cool_select``, ``io/native/cool_select.cpp``),
+which writes only the kept rows, in file order; :func:`_select_plain` is
+its numpy twin, which the tests hold it to. A kept pixel whose bin lies
+outside its chromosome's weights is a malformed file: the fetch raises
+``ValueError`` naming it.
+
+A fetch opens up to three profiler ranges, once each: ``cool.read`` (the
+index slice and the three pixel columns, inflated), ``cool.balance``
+(the weight columns read; only where the fetch balances) and
+``cool.select`` (the one native pass). :attr:`CoolFile.counters` adds up
+the pixel rows read, sifted by the native pass and kept, and the HDF5
+reader's inflate counters.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from mustache_tpu_torch.io import native
 from mustache_tpu_torch.io.h5 import H5File
+
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 
 
 class CoolFile:
@@ -69,12 +81,13 @@ class CoolFile:
         # genome scale the HDF5 re-reads add up
         self._chromnames = None
         self._chrom_offset = None
-        self.rows = {"rows_read": 0, "rows_kept": 0}
+        self.rows = {"rows_read": 0, "rows_native": 0, "rows_kept": 0}
 
     @property
     def counters(self) -> dict:
-        """Pixel rows read and kept by this file's fetches, and the HDF5
-        reader's inflate counters (``H5File.counters``)."""
+        """Pixel rows read, sifted by the native pass and kept by this
+        file's fetches, and the HDF5 reader's inflate counters
+        (``H5File.counters``)."""
         return {**self.rows, **self._h5.counters}
 
     # -- metadata ----------------------------------------------------------
@@ -126,6 +139,28 @@ class CoolFile:
                 self._h5.read(px + "bin2_id", p0, p1, np.int64),
                 self._h5.read(px + "count", p0, p1, np.float64))
 
+    def _sift(self, b1, b2, v, bounds, wx=None, wy=None):
+        """The fetch's one native pass (:func:`native.cool_select`) over
+        its decoded rows, counted; raises ``ValueError`` for a kept pixel
+        whose bin lies outside its weights."""
+        out = native.cool_select(b1, b2, v, bounds, wx, wy)
+        if out is None:
+            raise ValueError(f"a pixel's bin lies outside its chromosome's "
+                             f"weights in {self.path} (malformed file)")
+        self.rows["rows_read"] += len(v)
+        self.rows["rows_native"] += len(v)
+        self.rows["rows_kept"] += len(out[2])
+        return out
+
+    def _weights(self, balance, *chroms):
+        """Each chromosome's weight column, read in a ``cool.balance``
+        range; ``(None,) * len(chroms)`` when ``balance`` is False."""
+        if balance is False:
+            return (None,) * len(chroms)
+        column = "weight" if balance is True else str(balance)
+        with torch.profiler.record_function("cool.balance"):
+            return tuple(self.weights(c, column) for c in chroms)
+
     def fetch_band(self, chrom: str, distance_bp: int,
                    balance: str | bool = True):
         """COO triplets (x, y, v) of the chromosome's upper-triangular
@@ -141,22 +176,10 @@ class CoolFile:
                                   hi + 1)
             p0, p1 = int(b1off[0]), int(b1off[-1])
             b1, b2, v = self._read_pixels(p0, p1)
-
+        w, = self._weights(balance, chrom)
         with rf("cool.select"):
-            keep = (b2 < hi) & (np.abs(b2 - b1) <= distance_bp / res)
-            b1, b2, v = b1[keep] - lo, b2[keep] - lo, v[keep]
-            if balance is False:
-                out = _positive(b1, b2, v)
-        if balance is not False:
-            column = "weight" if balance is True else str(balance)
-            with rf("cool.balance"):
-                w = self.weights(chrom, column)
-                v *= w[b1]          # in place: v is this call's own copy
-                v *= w[b2]
-                out = _positive(b1, b2, v)
-        self.rows["rows_read"] += p1 - p0
-        self.rows["rows_kept"] += len(out[2])
-        return out
+            return self._sift(b1, b2, v, (_I64_MIN, hi, _band_kmax(
+                distance_bp, res), lo, lo), w, w)
 
     def fetch_rect(self, chrom1: str, chrom2: str,
                    balance: str | bool = True):
@@ -180,19 +203,10 @@ class CoolFile:
                                   ahi + 1)
             p0, p1 = int(b1off[0]), int(b1off[-1])
             b1, b2, v = self._read_pixels(p0, p1)
+        wa, wb = self._weights(balance, a, b)
         with rf("cool.select"):
-            keep = (b2 >= blo) & (b2 < bhi)
-            x, y, v = b1[keep] - alo, b2[keep] - blo, v[keep]
-            if balance is False:
-                out = _positive(x, y, v)
-        if balance is not False:
-            column = "weight" if balance is True else str(balance)
-            with rf("cool.balance"):
-                v *= self.weights(a, column)[x]
-                v *= self.weights(b, column)[y]
-                out = _positive(x, y, v)
-        self.rows["rows_read"] += p1 - p0
-        self.rows["rows_kept"] += len(out[2])
+            out = self._sift(b1, b2, v, (blo, bhi, _I64_MAX, alo, blo), wa,
+                             wb)
         return (out[1], out[0], out[2]) if flip else out
 
     def close(self):
@@ -203,6 +217,30 @@ class CoolFile:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _band_kmax(distance_bp, res) -> int:
+    """The largest bin distance of the band, ``floor(distance_bp / res)``
+    (int64's largest at most): for bins below 2**53, ``|b2 - b1| <=
+    distance_bp / res`` exactly when ``|b2 - b1| <= _band_kmax(...)``."""
+    return min(math.floor(distance_bp / res), _I64_MAX)
+
+
+def _select_plain(b1, b2, v, bounds, wx=None, wy=None):
+    """:func:`native.cool_select` in numpy: the passes a fetch made before
+    the native sift, kept as its twin. None where a kept row's shifted bin
+    lies outside its weight vector (numpy's indexing would wrap a negative
+    one)."""
+    c_lo, c_hi, kmax, xlo, ylo = bounds
+    keep = (b2 >= c_lo) & (b2 < c_hi) & (np.abs(b2 - b1) <= kmax)
+    x, y, v = b1[keep] - xlo, b2[keep] - ylo, v[keep]
+    if wx is not None:
+        if len(x) and (x.min() < 0 or x.max() >= len(wx) or y.min() < 0
+                       or y.max() >= len(wy)):
+            return None
+        v = v * wx[x]
+        v *= wy[y]
+    return _positive(x, y, v)
 
 
 def _positive(x, y, v):

@@ -1,13 +1,16 @@
 """ctypes bindings for the native host band fill, host normalize,
-``.hic`` block decoder and HDF5 chunk decoder, and the band fill's numpy
-twins.
+``.hic`` block decoder, HDF5 chunk decoder and cooler pixel sift, and the
+band fill's numpy twins.
 
 Torch port of ``mustache_tpu/io/native/__init__.py`` (bindings at :50-70,
 :189-218, :221-247 and :250-424). ``band_fill.cpp``, ``normalize.cpp``
 and ``hic_decode.cpp`` (copies of the JAX package's functions but for
 the compact fills' row-range walk and census, ``band_fill.cpp``'s header;
-the decoder links zlib) and ``h5_chunks.cpp`` (the port's own: the
-chunked reads of ``io/h5.py``, which links zlib too) are compiled with
+the decoder links zlib), ``h5_chunks.cpp`` (the port's own: the
+chunked reads of ``io/h5.py``, which links zlib too) and
+``cool_select.cpp`` (the port's own: a cooler fetch's band or rectangle
+kept, bins shifted, weights applied and non-positive values dropped in
+one threaded pass, ``io/cool.py``) are compiled with
 g++ at first use into the port's build cache (``kernels/build.py``, keyed
 by a hash of the source); a failed build raises, and nothing here falls
 back to numpy or Python's ``zlib`` (``available`` only says whether a
@@ -19,13 +22,16 @@ beside its native calls (``mustache_tpu/pipeline.py:67-76,109-112,
 136-147,159-165``). The tests hold the native functions to them; the
 pipeline calls only :func:`fill_band_plain`, for the float64 band the
 native fill (float32 only) does not write. The chunk decoder's twin is
-``H5File._read_chunked_plain``.
+``H5File._read_chunked_plain``, the sift's ``io/cool.py::_select_plain``
+(the numpy passes it replaced).
 
 ``FILLS`` counts the native fill calls, ``DECODES`` the native ``.hic``
-decoder calls and ``H5_DECODES`` the native HDF5 chunk decoder calls
-(plain integers), so a run can show that its band went up through the
-native fill, its ``.hic`` blocks through the native decoder and its
-cooler columns through the chunk decoder.
+decoder calls, ``H5_DECODES`` the native HDF5 chunk decoder calls and
+``COOL_SELECTS`` the native sifts (plain integers; the last two under a
+lock, as the CLI reads a cooler file on two threads), so a run can show
+that its band went up through the native fill, its ``.hic`` blocks
+through the native decoder and its cooler columns through the chunk
+decoder and the sift.
 """
 
 from __future__ import annotations
@@ -40,11 +46,14 @@ SRC = Path(__file__).resolve().parent / "band_fill.cpp"
 NORM_SRC = Path(__file__).resolve().parent / "normalize.cpp"
 HIC_SRC = Path(__file__).resolve().parent / "hic_decode.cpp"
 H5_SRC = Path(__file__).resolve().parent / "h5_chunks.cpp"
+COOL_SRC = Path(__file__).resolve().parent / "cool_select.cpp"
 N_THREADS = 8
 FILLS = 0
 DECODES = 0
 H5_DECODES = 0
 _H5_DECODES_LOCK = threading.Lock()   # the CLI decodes on two threads
+COOL_SELECTS = 0
+_COOL_SELECTS_LOCK = threading.Lock()
 
 _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -243,6 +252,76 @@ def decode_h5_chunks(fd: int, addr, size, mask, first, chunk_rows: int,
     if rc not in (0, H5_READ, H5_INFLATE, H5_SIZE):
         raise RuntimeError(f"native HDF5 chunk decode failed (rc={rc})")
     return rc, stats
+
+
+def bind_cool(lib) -> None:
+    """ctypes signatures of the cooler pixel sift's two passes."""
+    head = [_I64, _I64, _F64, _i64, _I64, _P, _i64, _P, _i64, _i32]
+    lib.mtpu_cool_count.restype = ctypes.c_int
+    lib.mtpu_cool_count.argtypes = head + [_I64]
+    lib.mtpu_cool_write.restype = ctypes.c_int
+    lib.mtpu_cool_write.argtypes = head + [_I64, _I64, _I64, _F64]
+
+
+def cool_library():
+    """The cooler pixel sift library, built at first use (raises on
+    failure)."""
+    from mustache_tpu_torch.kernels import build
+
+    return build.load("cool_select", bind_cool, src=COOL_SRC)
+
+
+COOL_OUTSIDE = -1   # the sift's code for a bin outside its weights
+
+
+def cool_select(b1, b2, v, bounds, wx=None, wy=None, n_threads=N_THREADS):
+    """A cooler fetch's pixel rows sifted in one native pass over the
+    decoded columns ``b1``, ``b2`` (int64) and ``v`` (float64): the rows
+    with ``c_lo <= b2 < c_hi`` and ``|b2 - b1| <= kmax`` kept, their bins
+    shifted to ``(b1 - xlo, b2 - ylo)``, their values balanced as
+    ``(v * wx[x]) * wy[y]`` where the weight vectors ``wx`` and ``wy`` are
+    given, and only finite positive values kept; ``bounds`` is ``(c_lo,
+    c_hi, kmax, xlo, ylo)``. Returns ``(x, y, v)`` in input order, or None
+    where a kept row's shifted bin lies outside its weight vector. The
+    columns are read in place where they are C-contiguous int64 and
+    float64 (else copied once), and split over up to ``n_threads``
+    threads, each counting, then writing, its range's kept rows into its
+    slice of the outputs."""
+    global COOL_SELECTS
+    cols = (np.ascontiguousarray(b1, np.int64),
+            np.ascontiguousarray(b2, np.int64), _f64(v))
+    n = len(cols[2])
+    if any(a.shape != (n,) for a in cols):
+        raise ValueError(f"columns of shapes {[a.shape for a in cols]}: "
+                         f"three 1-D columns of one length needed")
+    if (wx is None) != (wy is None):
+        raise ValueError("give both weight vectors or neither")
+    w = [None, 0, None, 0]
+    if wx is not None:
+        wx, wy = _f64(wx), _f64(wy)
+        if wx.ndim != 1 or wy.ndim != 1:
+            raise ValueError("weight vectors must be 1-D")
+        w = [_ptr(wx), len(wx), _ptr(wy), len(wy)]
+    bounds = np.array(bounds, np.int64)
+    if bounds.shape != (5,):
+        raise ValueError("bounds are (c_lo, c_hi, kmax, xlo, ylo)")
+    lib, ranges = cool_library(), max(1, min(int(n_threads), n))
+    with _COOL_SELECTS_LOCK:
+        COOL_SELECTS += 1
+    counts = np.zeros(ranges, np.int64)
+    rc = lib.mtpu_cool_count(*cols, n, bounds, *w, ranges, counts)
+    if rc == 0:
+        offsets = np.zeros(ranges, np.int64)
+        np.cumsum(counts[:-1], out=offsets[1:])
+        k = int(counts.sum())
+        out = (np.empty(k, np.int64), np.empty(k, np.int64),
+               np.empty(k, np.float64))
+        rc = lib.mtpu_cool_write(*cols, n, bounds, *w, ranges, offsets, *out)
+    if rc == COOL_OUTSIDE:
+        return None
+    if rc != 0:
+        raise RuntimeError(f"native cool_select failed (rc={rc})")
+    return out
 
 
 def available() -> bool:

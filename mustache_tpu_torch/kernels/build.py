@@ -3,8 +3,8 @@
 Each CUDA source ``csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` into ``lib<name>_<hash>.so`` in the build cache
 (:func:`build_dir`); a C++ host source (the band fill, normalize,
-``.hic`` block decoder and HDF5 chunk decoder of ``io/native``) is
-compiled the same way by
+``.hic`` block decoder, HDF5 chunk decoder and cooler pixel sift of
+``io/native``) is compiled the same way by
 ``g++``. The hash covers the
 source and the flags, so an edited source rebuilds and a stale library
 is never loaded; nothing depends on the

@@ -8,8 +8,8 @@ costs are the builds of its native code into the build cache
 
 * ``fused_ladder`` (nvcc, ``kernels/csrc/fused_ladder.cu``), on the card
   only;
-* ``band_fill``, ``normalize``, ``hic_decode`` and ``h5_chunks`` (g++,
-  ``io/native``).
+* ``band_fill``, ``normalize``, ``hic_decode``, ``h5_chunks`` and
+  ``cool_select`` (g++, ``io/native``).
 
 Usage::
 
@@ -38,7 +38,8 @@ def libraries(device) -> dict:
     libs = {"band_fill": (native.SRC, native.bind),
             "normalize": (native.NORM_SRC, native.bind_normalize),
             "hic_decode": (native.HIC_SRC, native.bind_hic),
-            "h5_chunks": (native.H5_SRC, native.bind_h5)}
+            "h5_chunks": (native.H5_SRC, native.bind_h5),
+            "cool_select": (native.COOL_SRC, native.bind_cool)}
     if device.type == "cuda":
         libs["fused_ladder"] = (None, fused_ladder.bind)
     return libs

@@ -9,9 +9,12 @@ bias):
   writer's inputs, bit for bit;
 * its ``cool.read``, ``cool.select`` and ``cool.balance`` ranges open
   once a fetch, not once a chunk, and its counters count the rows and
-  the chunks, every chunk decoded by the native decoder;
+  the chunks, every chunk decoded by the native decoder and every row
+  sifted by the native pass;
 * the CLI's ``ingest`` events carry the counters (the prefetched
-  chromosome's too, ``chunks_native`` equal to ``chunks_inflated``), and its rows are ``detect_loops_coo``'s on the plain
+  chromosome's too, ``chunks_native`` equal to ``chunks_inflated`` and
+  ``rows_native`` to ``rows_read``), and its rows are
+  ``detect_loops_coo``'s on the plain
   balance; the balanced (real-valued) band goes up as f32 after one
   refill of the one-pass u8 fill."""
 
@@ -38,8 +41,8 @@ from benchmark.harness import coolfile, farfield  # noqa: E402
 RES = 5000
 D_PX = 200                     # -d 1 Mb, the CLI's least at 5 kb
 CHROMS = [("chr1", 520 * RES), ("chr2", 450 * RES - 9), ("chrX", 40 * RES)]
-COUNTERS = {"rows_read", "rows_kept", "chunks_inflated", "bytes_inflated",
-            "inflate_s", "unshuffle_s", "chunks_native"}
+COUNTERS = {"rows_read", "rows_native", "rows_kept", "chunks_inflated",
+            "bytes_inflated", "inflate_s", "unshuffle_s", "chunks_native"}
 
 
 @pytest.fixture(scope="module")
@@ -107,6 +110,7 @@ def test_ranges_open_once_a_fetch_and_counters_count(mcool):
         assert names.count(stage) == 1, stage
     assert set(counters) == COUNTERS
     assert counters["rows_read"] == len(maps["chr1"]["count"])
+    assert counters["rows_native"] == counters["rows_read"]
     assert counters["rows_kept"] == len(v)
     # the three pixel columns' chunks, the index's and the weights'
     assert counters["chunks_inflated"] > 3 * 8
@@ -132,6 +136,7 @@ def test_the_cli_logs_the_counters_and_detects_the_balanced_band(
         assert COUNTERS <= set(e)
         assert e["chunks_native"] == e["chunks_inflated"] > 0
         assert e["rows_read"] == len(maps[e["chromosome"]]["count"])
+        assert e["rows_native"] == e["rows_read"]
         assert e["rows_kept"] == len(plain_balance(maps[e["chromosome"]])[2])
     # chr1's rows are detect_loops_coo's on the plain balance
     cfg = DetectionConfig(resolution=RES, distance_bp=1_000_000, pt=0.1,

@@ -1,5 +1,6 @@
 """``mustache_tpu_torch.warmup`` on the CPU: it builds the g++ libraries
-(band fill, host normalize, .hic decoder, HDF5 chunk decoder) into the
+(band fill, host normalize, .hic decoder, HDF5 chunk decoder, cooler
+pixel sift) into the
 build cache and loads
 them, never calls nvcc (the fused kernel is built only for the card),
 prints each build's seconds, and is what the CLIs' ``--engine-warmup``
@@ -13,7 +14,8 @@ from mustache_tpu_torch.kernels import build
 from mustache_tpu_torch.runlog import RunLog
 import torch_port_cases  # noqa: F401  (one torch thread per worker)
 
-GXX_LIBS = {"band_fill", "normalize", "hic_decode", "h5_chunks"}
+GXX_LIBS = {"band_fill", "normalize", "hic_decode", "h5_chunks",
+            "cool_select"}
 
 
 @pytest.fixture
@@ -46,7 +48,7 @@ def test_main_cpu(no_nvcc, capsys, tmp_path):
     assert "nothing compiles per shape" in out
     for name in GXX_LIBS:
         assert f"[warmup] {name}: " in out
-    assert "[warmup] 4 libraries ready" in out
+    assert "[warmup] 5 libraries ready" in out
 
 
 def test_cli_warm_runs_warmup(monkeypatch):
