@@ -205,12 +205,15 @@ def _row_cumsum(a: torch.Tensor) -> torch.Tensor:
 
     The running count spans the whole batch, so it must stay below 2^31:
     it is at most the batch's cells (marks) or ranks (histogram), B·N·Dl,
-    131 M at the batch rule's 16 blocks of 4000^2 with Dl 2048 (1 kb)."""
+    131 M at the batch rule's 16 blocks of 4000^2 with Dl 2048 (1 kb).
+    One ``detect.scan`` profiler range."""
     B, L = a.shape
     if B * L >= 2 ** 31:
         raise ValueError(f"a [{B}, {L}] batch overflows the int32 prefix sum")
-    flat = torch.cumsum(a.reshape(-1), 0, dtype=torch.int32).reshape(B, L)
-    return flat - torch.cat([flat.new_zeros(1), flat[:-1, -1]])[:, None]
+    with torch.profiler.record_function("detect.scan"):
+        flat = torch.cumsum(a.reshape(-1), 0,
+                            dtype=torch.int32).reshape(B, L)
+        return flat - torch.cat([flat.new_zeros(1), flat[:-1, -1]])[:, None]
 
 
 def _bh_cutoff(found, logp, n_tested, log_pt: float):
@@ -297,7 +300,10 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
     band-space detection state ``[B, N, Dl]``: BH FDR (``_BH_MODE``),
     selection, sparsity/enrichment filters and the exported 3x3
     neighbourhoods for host clustering (mustache.py:774-841). Every
-    output has a leading B.
+    output has a leading B. Each int32 prefix sum (the support's column
+    sums; count mode's marks and rank histogram, :func:`_row_cumsum`) is
+    one ``detect.scan`` profiler range: three a batch in count mode, one
+    in sort mode.
 
     ``extras``: tuples ``(name, band_arr, inside_fill, outside_fill)``,
     each exported as ``neigh_<name>`` over the candidate neighbourhoods,
@@ -327,8 +333,9 @@ def _band_candidates(geom: _BandGeom, *, band_logp, band_sigidx, band_nz,
 
     # sparsity filter via per-column prefix sums of the band support (each
     # column's count is at most N, so int32 holds it)
-    cs_flat = torch.cumsum(band_nz.to(torch.int32), -2,
-                           dtype=torch.int32).reshape(B, M)
+    with torch.profiler.record_function("detect.scan"):
+        cs_flat = torch.cumsum(band_nz.to(torch.int32), -2,
+                               dtype=torch.int32).reshape(B, M)
     s1 = torch.where(cand_sigidx >= 0,
                      ceil_table[cand_sigidx.clamp(min=0).long()], 1).long()
     dt = band_logp.dtype

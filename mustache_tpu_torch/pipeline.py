@@ -84,6 +84,11 @@ def fill_raw_band(x, y, v, band_shape) -> np.ndarray:
 _U4_MIN_BYTES = 8_000_000
 EXC_BYTES = 12      # one exception record: i32 row + i32 col + f32 value
 
+# bytes the float32 band upload (``pipeline.upload``) has handed to the
+# card since the process started: each call's ``BandUpload.nbytes``, the
+# band's slabs and its exception records
+H2D_BYTES = 0
+
 
 def fill_raw_band_compact(x, y, v, band_shape, counts=None):
     """Raw-band fill in the narrowest LOSSLESS transfer encoding
@@ -344,12 +349,14 @@ def normalized_bands(x, y, v, cfg: DetectionConfig, band_shape, n: int,
     normalizes (at f32 work dtype for the float32 default) and each entry
     receives only its slab. Returns ``(one band per entry, the plan
     line's account of what went up)``."""
+    global H2D_BYTES
     mode = ("exact" if exact else "fast") if normalize else "off"
     rf = torch.profiler.record_function
     if plan is None and normalize and not exact and cfg.precision == "float32":
         with rf("pipeline.upload"):
             upload = stream_band_to_device(x, y, v, band_shape,
                                            runner.devices[0])
+            H2D_BYTES += upload.nbytes
             with rf("upload.stage"):
                 exc = (None if upload.exceptions is None
                        else pad_exceptions(upload.exceptions, band_shape[0]))
