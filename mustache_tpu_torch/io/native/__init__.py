@@ -25,11 +25,13 @@ native fill (float32 only) does not write. The chunk decoder's twin is
 ``H5File._read_chunked_plain``, the sift's ``io/cool.py::_select_plain``
 (the numpy passes it replaced).
 
-``FILLS`` counts the native fill calls, ``DECODES`` the native ``.hic``
-decoder calls, ``H5_DECODES`` the native HDF5 chunk decoder calls and
-``COOL_SELECTS`` the native sifts (plain integers; the last two under a
-lock, as the CLI reads a cooler file on two threads), so a run can show
-that its band went up through the native fill, its ``.hic`` blocks
+``FILLS`` counts the native fill calls, ``FILLS4`` the nibble-packed u4
+bands and slabs filled (a walk refused for the COO's order not counted),
+``DECODES`` the native ``.hic`` decoder calls, ``H5_DECODES`` the native
+HDF5 chunk decoder calls and ``COOL_SELECTS`` the native sifts (plain
+integers; the last two under a lock, as the CLI reads a cooler file on
+two threads), so a run can show that its band went up through the native
+fill (a u4 band straight into its packed slabs), its ``.hic`` blocks
 through the native decoder and its cooler columns through the chunk
 decoder and the sift.
 """
@@ -49,6 +51,7 @@ H5_SRC = Path(__file__).resolve().parent / "h5_chunks.cpp"
 COOL_SRC = Path(__file__).resolve().parent / "cool_select.cpp"
 N_THREADS = 8
 FILLS = 0
+FILLS4 = 0
 DECODES = 0
 H5_DECODES = 0
 _H5_DECODES_LOCK = threading.Lock()   # the CLI decodes on two threads
@@ -59,7 +62,6 @@ _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-_U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _P, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 
 
@@ -74,9 +76,6 @@ def bind(lib) -> None:
         "mtpu_fill_band_compact": [_P, _P, _i32, _F64, _i64, _P, _i32, _i64,
                                    _i64, _I32, _I32, _F32, _i64, _i32, _i32,
                                    _P, _P],
-        "mtpu_classify_values4": [_F64, _i64, _i32, _I64],
-        "mtpu_pack_band4": [_U8, _i64, _i64, _U8, _I32, _I32, _F32, _i64,
-                            _i32],
         "mtpu_fill_band_compact_range": [_P, _P, _i32, _F64, _i64, _P, _i32,
                                          _i64, _i64, _i64, _I32, _I32, _F32,
                                          _i64, _i32, _i32],
@@ -415,25 +414,15 @@ def fill_band(x, y, v, band_out, n_threads=N_THREADS) -> None:
         band_out.shape[1], int(n_threads)), "fill_band")
 
 
-def classify_values(v, n_threads=N_THREADS) -> tuple[int, int]:
-    """Exception census for the compact band: (misfit_u8, misfit_u16)
-    counts of values that are not non-negative integers below 256 /
-    65536."""
+def classify_values(v, n_threads=N_THREADS) -> tuple[int, int, int]:
+    """Exception census for the compact band, in one pass: ``(misfit_u8,
+    misfit_u16, misfit_u4)`` counts of values that are not non-negative
+    integers below 256 / 65536 / 16."""
     v = _f64(v)
-    out = np.zeros(2, np.int64)
+    out = np.zeros(3, np.int64)
     _check(library().mtpu_classify_values(v, len(v), int(n_threads), out),
            "classify_values")
-    return int(out[0]), int(out[1])
-
-
-def classify_values4(v, n_threads=N_THREADS) -> int:
-    """4-bit census: count of values that are not non-negative integers
-    below 16."""
-    v = _f64(v)
-    out = np.zeros(1, np.int64)
-    _check(library().mtpu_classify_values4(v, len(v), int(n_threads), out),
-           "classify_values4")
-    return int(out[0])
+    return int(out[0]), int(out[1]), int(out[2])
 
 
 def _exc_buffers(cap: int):
@@ -454,12 +443,16 @@ def _walkable(x, y) -> bool:
 
 
 def fill_band_compact(x, y, v, band_out, exc_cap, n_threads=N_THREADS,
-                      scan=False):
+                      scan=False, packed4=False):
     """Narrow-band fill with an exception list: integer-fitting values land
     in ``band_out`` (uint8 or uint16), misfits come back as ``(rows, cols,
     f32 values)``, trimmed to their count (order across threads is not
     fixed). Requires unique (x, y) pairs. Raises when more than
     ``exc_cap`` misfits turn up.
+
+    ``packed4``: ``band_out`` is the nibble-packed uint8 ``[rows, Dl //
+    2]`` band (even diagonal in the low nibble), which need not come
+    zeroed; values that are not integers below 16 are the misfits.
 
     Each thread walks only its own rows' entries, found by binary search
     on ``x``, so the COO has to be sorted by row: where it is not, or
@@ -467,22 +460,22 @@ def fill_band_compact(x, y, v, band_out, exc_cap, n_threads=N_THREADS,
     back and ``band_out`` is as it was, or zeroed where the disorder
     showed only during the walk. ``scan=True`` fills any COO, each thread
     reading every entry."""
-    _out(band_out, (np.uint8, np.uint16))
+    _out(band_out, (np.uint8,) if packed4 else (np.uint8, np.uint16))
     if not (scan or _walkable(x, y)):
         return None
     return _trimmed("fill_band_compact", *_compact(
         "mtpu_fill_band_compact", x, y, v, band_out, (band_out.shape[0],),
-        exc_cap, n_threads, scan, None, None))
+        exc_cap, n_threads, scan, packed4, None, None), packed4)
 
 
 def fill_band_compact_range(x, y, v, slab, g0, g1, exc_cap,
-                            n_threads=N_THREADS, scan=False):
+                            n_threads=N_THREADS, scan=False, packed4=False):
     """Row-windowed compact fill for the streamed upload: fill only global
     rows [g0, g1) into ``slab`` (whose row 0 is global row g0). Exception
-    rows come back as global indices. None and ``scan`` as in
+    rows come back as global indices. None, ``scan`` and ``packed4`` as in
     :func:`fill_band_compact`; the walk also reads the other rows' ``x``
     once, for their order."""
-    _out(slab, (np.uint8, np.uint16))
+    _out(slab, (np.uint8,) if packed4 else (np.uint8, np.uint16))
     if not 0 <= g0 <= g1 or g1 - g0 != slab.shape[0]:
         raise ValueError(f"rows [{g0}, {g1}) do not match a slab of "
                          f"{slab.shape[0]} rows")
@@ -490,24 +483,24 @@ def fill_band_compact_range(x, y, v, slab, g0, g1, exc_cap,
         return None
     return _trimmed("fill_band_compact_range", *_compact(
         "mtpu_fill_band_compact_range", x, y, v, slab, (int(g0), int(g1)),
-        exc_cap, n_threads, scan))
+        exc_cap, n_threads, scan, packed4), packed4)
 
 
 def fill_band_u8_census(x, y, v, band_out, n_threads=N_THREADS):
-    """:func:`fill_band_compact` into a uint8 ``band_out`` and
-    :func:`classify_values`' census of every value, in one pass over a COO
-    sorted by row: ``(exceptions, (misfit_u8, misfit_u16))``, with every
-    exception (no capacity: the pass holds them, and they are copied out
-    at their count). None, as from :func:`fill_band_compact`, where the
-    COO is not sorted by row, or ``x`` and ``y`` are not both int32 or
-    both int64."""
+    """:func:`fill_band_compact` into a uint8 ``band_out`` and the u8 and
+    u16 counts of :func:`classify_values`' census of every value, in one
+    pass over a COO sorted by row: ``(exceptions, (misfit_u8,
+    misfit_u16))``, with every exception (no capacity: the pass holds
+    them, and they are copied out at their count). None, as from
+    :func:`fill_band_compact`, where the COO is not sorted by row, or
+    ``x`` and ``y`` are not both int32 or both int64."""
     _out(band_out, (np.uint8,))
     if not _walkable(x, y):
         return None
     census, held = np.zeros(2, np.int64), ctypes.c_void_p()
     n, _ = _compact("mtpu_fill_band_compact", x, y, v, band_out,
-                    (band_out.shape[0],), 0, n_threads, False, _ptr(census),
-                    ctypes.byref(held))
+                    (band_out.shape[0],), 0, n_threads, False, False,
+                    _ptr(census), ctypes.byref(held))
     if n == UNSORTED:
         return None
     _check(n, "fill_band_u8_census")
@@ -520,48 +513,32 @@ def fill_band_u8_census(x, y, v, band_out, n_threads=N_THREADS):
     return tuple(a[:n] for a in exc), (int(census[0]), int(census[1]))
 
 
-def _compact(name, x, y, v, band, window, exc_cap, n_threads, scan, *extra):
+def _compact(name, x, y, v, band, window, exc_cap, n_threads, scan,
+             packed4, *extra):
     """One native compact fill over the rows ``window`` (``(n_rows,)`` or
     ``(g0, g1)``): its return code and exception buffers."""
     x, y = _xy(x, y)
     v = _f64(v)
     er, ec, ev, cap = _exc_buffers(exc_cap)
+    bits, ldb = ((4, 2 * band.shape[1]) if packed4
+                 else (8 * band.dtype.itemsize, band.shape[1]))
     _count_fill()
     n = getattr(library(), name)(
         _ptr(x), _ptr(y), int(x.dtype == np.int64), v, len(v), _ptr(band),
-        int(band.dtype == np.uint16), *window, band.shape[1], er, ec, ev,
-        cap, int(n_threads), int(scan), *extra)
+        bits, *window, ldb, er, ec, ev, cap, int(n_threads), int(scan),
+        *extra)
     return n, (er, ec, ev)
 
 
-def _trimmed(name, n, exc):
+def _trimmed(name, n, exc, packed4):
     """A compact fill's exceptions trimmed to its count ``n``; None for a
     COO not sorted by row."""
+    global FILLS4
     if n == UNSORTED:
         return None
     _check(n, f"{name} (exception capacity overflow)")
+    FILLS4 += packed4
     return tuple(a[:n] for a in exc)
-
-
-def pack_band4(band, exc_cap, out=None, n_threads=N_THREADS):
-    """Nibble-pack a filled uint8 band (two counts per byte, even column in
-    the low nibble) into ``out`` (new when None). In-band values >= 16 come
-    back as an exception triple and are packed as 0. Returns ``(packed,
-    (rows, cols, values))``."""
-    _out(band, (np.uint8,))
-    rows, ldb = band.shape
-    if ldb % 2:
-        raise ValueError(f"pack_band4 needs an even band width, got {ldb}")
-    if out is None:
-        out = np.empty((rows, ldb // 2), np.uint8)
-    _out(out, (np.uint8,))
-    if out.shape != (rows, ldb // 2):
-        raise ValueError(f"packed output {out.shape} != {(rows, ldb // 2)}")
-    er, ec, ev, cap = _exc_buffers(exc_cap)
-    n = _check(library().mtpu_pack_band4(band, rows, ldb, out, er, ec, ev,
-                                         cap, int(n_threads)),
-               "pack_band4 (exception capacity overflow)")
-    return out, (er[:n], ec[:n], ev[:n])
 
 
 # numpy twins (plain versions) ---------------------------------------------

@@ -77,10 +77,11 @@ def fill_raw_band(x, y, v, band_shape) -> np.ndarray:
     return band
 
 
-# uint4 packing pays a host census and pack plus a larger exception
-# scatter; the JAX package found its link bytes worth that only from 8 M
-# band cells (``mustache_tpu/pipeline.py:80-83``). Kept as is: the H100
-# numbers are in PERF.md, the threshold is not retuned for the card.
+# uint4 packing pays the u4 count of the host census and a larger
+# exception scatter (the JAX package a pack pass too); the JAX package
+# found its link bytes worth that only from 8 M band cells
+# (``mustache_tpu/pipeline.py:80-83``). Kept as is: the H100 numbers are
+# in PERF.md, the threshold is not retuned for the card.
 _U4_MIN_BYTES = 8_000_000
 EXC_BYTES = 12      # one exception record: i32 row + i32 col + f32 value
 
@@ -147,53 +148,60 @@ def _encoding(rows: int, Dl: int, ne8: int, ne16: int) -> str:
     return "u8"
 
 
-def _packs4(v, rows: int, Dl: int, ne8: int):
-    """The u4 census of a band whose census picked ``u8|u4``: ``(whether
-    nibble-packing beats u8 by 0.7x in bytes sent, its misfit count)``."""
-    with torch.profiler.record_function("upload.census"):
-        ne4 = native.classify_values4(v)
+def _packs4(rows: int, Dl: int, ne8: int, ne4: int) -> bool:
+    """Whether a band whose census picked ``u8|u4`` goes nibble-packed:
+    u4 beats u8 by 0.7x in bytes sent."""
     return (rows * Dl // 2 + ne4 * EXC_BYTES
-            < 0.7 * (rows * Dl + ne8 * EXC_BYTES)), ne4
+            < 0.7 * (rows * Dl + ne8 * EXC_BYTES))
 
 
 def _fill_by_census(x, y, v, band_shape, counts, scan=False):
-    """:func:`fill_raw_band_compact` by the census: ``counts``, or
-    ``native.classify_values`` taken here when None; ``scan``: the COO is
-    known not to be sorted by row (:func:`_compact_fill`)."""
+    """:func:`fill_raw_band_compact` by the census: ``counts`` (the u8 and
+    u16 counts, or ``native.classify_values``' three), or
+    ``native.classify_values`` taken here when None or when ``u8|u4``
+    needs the u4 count; ``scan``: the COO is known not to be sorted by
+    row (:func:`_compact_fill`). A u4 band is filled straight into its
+    nibble-packed ``[rows, Dl // 2]`` buffer."""
     rf = torch.profiler.record_function
     rows, Dl = band_shape
     if counts is None:
         with rf("upload.census"):
             counts = native.classify_values(v)
-    ne8, ne16 = counts
+    ne8, ne16 = counts[:2]
     encoding = _encoding(rows, Dl, ne8, ne16)
     if encoding == "f32":
         return fill_raw_band(x, y, v, band_shape), None, False
     packed4 = False
     if encoding == "u8|u4":
-        packed4, ne4 = _packs4(v, rows, Dl, ne8)
-    dtype, ne = (np.uint16, ne16) if encoding == "u16" else (np.uint8, ne8)
+        if len(counts) < 3:
+            with rf("upload.census"):
+                counts = native.classify_values(v)
+        packed4 = _packs4(rows, Dl, ne8, counts[2])
     with rf("upload.fill"):
-        band = np.zeros(band_shape, dtype)
-        exc = _compact_fill(native.fill_band_compact, x, y, v, band, ne + 16,
-                            scan=scan)
         if packed4:
-            band, big = native.pack_band4(band, ne4 + 16)
-            exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
+            band = np.empty((rows, Dl // 2), np.uint8)
+            exc = _compact_fill(native.fill_band_compact, x, y, v, band,
+                                counts[2] + 16, scan=scan, packed4=True)
+        else:
+            dtype, ne = ((np.uint16, ne16) if encoding == "u16"
+                         else (np.uint8, ne8))
+            band = np.zeros(band_shape, dtype)
+            exc = _compact_fill(native.fill_band_compact, x, y, v, band,
+                                ne + 16, scan=scan)
     return band, (exc if len(exc[0]) else None), packed4
 
 
-def _compact_fill(fill, *args, scan=False):
+def _compact_fill(fill, *args, scan=False, **kw):
     """A native compact fill (``native.fill_band_compact`` or its row
     window) by row ranges, or with ``scan`` by the full scan; where the
     walk finds the COO not sorted by row, the full scan fills it again in
     an ``upload.refill`` range."""
     if scan:
-        return fill(*args, scan=True)
-    exc = fill(*args)
+        return fill(*args, scan=True, **kw)
+    exc = fill(*args, **kw)
     if exc is None:
         with torch.profiler.record_function("upload.refill"):
-            exc = fill(*args, scan=True)
+            exc = fill(*args, scan=True, **kw)
     return exc
 
 
@@ -236,11 +244,13 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
     while slab k's pinned, non-blocking H2D is in flight. The slabs land
     in one preallocated device band, so nothing is concatenated. Other
     bands take the one-shot :func:`fill_raw_band_compact` and one H2D.
-    Its stages are profiler ranges: ``upload.census`` (the value census,
-    which the one-shot fill takes in its fill's pass), ``upload.fill``
-    (the host band's fill, u4 pack and exceptions), ``upload.refill``
-    (a second fill: :func:`fill_raw_band_compact`, :func:`_compact_fill`)
-    and ``upload.stage`` (pinning and the H2D enqueue)."""
+    Its stages are profiler ranges: ``upload.census`` (the value census:
+    one pass for the u8, u16 and u4 counts; the one-shot fill takes the
+    first two in its fill's pass), ``upload.fill`` (the host band's fill,
+    a u4 band straight into its nibble-packed slabs, and the exceptions),
+    ``upload.refill`` (a second fill: :func:`fill_raw_band_compact`,
+    :func:`_compact_fill`) and ``upload.stage`` (pinning and the H2D
+    enqueue)."""
     rf = torch.profiler.record_function
     rows, Dl = band_shape
     streamable = (len(v) >= (1 << 20) and rows >= 4096
@@ -249,7 +259,7 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
     if streamable:
         with rf("upload.census"):
             counts = native.classify_values(v)
-        encoding = _encoding(rows, Dl, *counts)
+        encoding = _encoding(rows, Dl, *counts[:2])
         # only the u8/u4 encodings stream (u16/f32 data goes one-shot,
         # with the same encoding fill_raw_band_compact would pick)
         streamable = encoding in ("u8", "u8|u4")
@@ -257,11 +267,10 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
         band, exc, p4 = fill_raw_band_compact(x, y, v, band_shape, counts)
         return BandUpload(upload_band(band, device), exc, p4, 1)
 
-    ne8 = counts[0]
-    p4, ne4 = (_packs4(v, rows, Dl, ne8) if encoding == "u8|u4"
-               else (False, None))
+    ne8, _, ne4 = counts
+    p4 = encoding == "u8|u4" and _packs4(rows, Dl, ne8, ne4)
     pin = device.type == "cuda"
-    width = Dl // 2 if p4 else Dl
+    width, cap = (Dl // 2, ne4 + 16) if p4 else (Dl, ne8 + 16)
     band_dev = torch.empty((rows, width), dtype=torch.uint8, device=device)
     # 2 slabs: each range fill reads every entry's x (its rows' entries
     # walked, the others' for their order), so more slabs cost host time
@@ -272,19 +281,13 @@ def stream_band_to_device(x, y, v, band_shape, device) -> BandUpload:
     for g0 in range(0, rows, per):
         g1 = min(g0 + per, rows)
         with rf("upload.fill"):
-            slab = torch.zeros((g1 - g0, Dl), dtype=torch.uint8,
-                               pin_memory=pin and not p4)
-            exc = _compact_fill(native.fill_band_compact_range, x, y, v,
-                                slab.numpy(), g0, g1, ne8 + 16)
-            if p4:
-                packed = torch.empty((g1 - g0, width), dtype=torch.uint8,
-                                     pin_memory=pin)
-                _, big = native.pack_band4(slab.numpy(), ne4 + 16,
-                                           out=packed.numpy())
-                big = (big[0] + np.int32(g0), big[1], big[2])
-                exc = tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
-                slab = packed
-        excs.append(exc)
+            # the u4 fill zeroes its own rows: a pinned slab from the
+            # allocator's cache, already faulted in, needs no clearing pass
+            slab = (torch.empty if p4 else torch.zeros)(
+                (g1 - g0, width), dtype=torch.uint8, pin_memory=pin)
+            excs.append(_compact_fill(native.fill_band_compact_range, x, y,
+                                      v, slab.numpy(), g0, g1, cap,
+                                      packed4=p4))
         # async on CUDA: the next slab fills while this one is in flight
         with rf("upload.stage"):
             band_dev[g0:g1].copy_(slab, non_blocking=pin)

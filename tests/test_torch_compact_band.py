@@ -168,19 +168,42 @@ def test_normalize_compact_matches_f32_and_jax(monkeypatch, encoding):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("lam,want", [(2.0, "u4"), (40.0, "u8"),
-                                      (500.0, "u16")])
-def test_stream_band_to_device(lam, want):
+@pytest.mark.parametrize("lam,want,rows_sorted", [
+    pytest.param(2.0, "u4", False, id="2.0-u4"),
+    pytest.param(40.0, "u8", False, id="40.0-u8"),
+    pytest.param(500.0, "u16", False, id="500.0-u16"),
+    pytest.param(2.0, "u4", True, id="2.0-u4-sorted"),
+])
+def test_stream_band_to_device(lam, want, rows_sorted, monkeypatch):
     """The streamed upload (rows >= 4096, >= 2^20 contacts, >= 8 M band
     cells) goes as two slabs of u8 or u4; u16 data goes one-shot. Either
-    way the widened band equals the f32 band bit for bit."""
+    way the widened band equals the f32 band bit for bit. A u4 band is
+    filled straight into its nibble-packed slabs, one u4 fill a slab
+    (``native.FILLS4``), whether its slabs' walks take the COO or, not
+    sorted by row, the full scan refills them: no u8 band is filled."""
     rows, Dl = 4096, 2048
     x, y, v = _coo(rows, Dl, seed=31, frac_float=0.001, lam=lam,
                    n=(1 << 20) + 5)
-    up = tpipeline.stream_band_to_device(x, y, v, (rows, Dl), CPU)
+    if rows_sorted:
+        order = np.argsort(x, kind="stable")
+        x, y, v = x[order], y[order], v[order]
+    native = tpipeline.native
+    assert not hasattr(native, "pack_band4")
+    kinds = []
+    for name in ("fill_band_compact", "fill_band_compact_range"):
+        def spy(*a, _fill=getattr(native, name), **kw):
+            kinds.append(kw.get("packed4", False))
+            return _fill(*a, **kw)
+        monkeypatch.setattr(native, name, spy)
+    before4 = native.FILLS4
+    up, names = _ranges(
+        lambda: tpipeline.stream_band_to_device(x, y, v, (rows, Dl), CPU))
     assert up.encoding == want
     assert up.slabs == (1 if want == "u16" else 2)
     assert up.n_exceptions >= int(0.001 * len(v))
+    assert native.FILLS4 - before4 == (2 if want == "u4" else 0)
+    assert names.count("upload.refill") == (0 if rows_sorted else up.slabs)
+    assert kinds and all(kinds) == (want == "u4")
     width = Dl // 2 if want == "u4" else Dl
     assert up.nbytes == (rows * width * (2 if want == "u16" else 1)
                          + 12 * up.n_exceptions)

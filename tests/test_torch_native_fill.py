@@ -2,7 +2,9 @@
 built with g++ at first use) against its numpy twins and against the JAX
 package's native library (``mustache_tpu.io.native``) on the same COO:
 bands bit for bit, censuses equal, exception lists equal as sets (their
-order across threads is not fixed)."""
+order across threads is not fixed). The nibble-packed u4 fill is held to
+the u8 fill followed by the nibble pack (``pack_band4_plain``, and the
+JAX package's ``pack_band4``)."""
 
 import numpy as np
 import pytest
@@ -54,10 +56,10 @@ CASES = {
 def test_census_matches_twin_and_jax(case):
     _, _, v = _coo(120, 64, seed=1, **CASES[case])
     v = np.concatenate([v, [np.nan, np.inf, -1.0, -0.0, 15.0, 16.0]])
-    assert tn.classify_values(v) == tn.classify_values_plain(v) \
-        == jnative.classify_values(v)
-    assert tn.classify_values4(v) == tn.classify_values4_plain(v) \
-        == jnative.classify_values4(v)
+    # one pass: the u8, u16 and u4 counts
+    assert tn.classify_values(v) == (*tn.classify_values_plain(v),
+                                     tn.classify_values4_plain(v)) \
+        == (*jnative.classify_values(v), jnative.classify_values4(v))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -104,26 +106,56 @@ def test_two_slab_ranges_compose_the_band(case):
     assert sorted(excs) == _as_set(exc_whole)
 
 
-@pytest.mark.parametrize("seed", [4, 5])
-def test_pack_band4(seed):
+def _packed_twin(x, y, v, g0, g1, Dl):
+    """Rows [g0, g1) of the u4 band as the u8 fill and the nibble pack
+    give them (the numpy twins): ``(packed, exceptions)``, the pack's
+    rows as global indices."""
+    band = np.zeros((g1 - g0, Dl), np.uint8)
+    exc = tn.fill_band_compact_range_plain(x, y, v, band, g0, g1)
+    packed, big = tn.pack_band4_plain(band)
+    big = (big[0] + np.int32(g0), big[1], big[2])
+    return packed, tuple(np.concatenate([a, b]) for a, b in zip(exc, big))
+
+
+# CASES, and the two COOs the native pack was held to the JAX pack on
+U4_CASES = {**CASES, "pack_seed4": dict(seed=4, lam=6.0, big8=20),
+            "pack_seed5": dict(seed=5, lam=6.0, big8=20)}
+
+
+@pytest.mark.parametrize("case", sorted(U4_CASES))
+def test_u4_fill_is_the_pack_of_the_u8_fill(case):
+    """The nibble-packed u4 fill, of the whole band and of both halves of
+    the streamed upload's row window, by the walk and by the full scan,
+    into an output that does not come zeroed: the packed band of the u8
+    fill bit for bit, the twins' and the JAX package's native fill and
+    pack, and its exceptions as a set (values in [16, 256) among them)."""
+    kw = dict(U4_CASES[case])
     rows, Dl = 97, 48
-    x, y, v = _coo(rows, Dl, seed=seed, lam=6.0, big8=20)
+    x, y, v = _coo(rows, Dl, seed=kw.pop("seed", 8), **kw)
     v[-20:] = 100.0                 # in the u8 band, over the nibble
-    band = np.zeros((rows, Dl), np.uint8)
-    tn.fill_band_compact(x, y, v, band, 64)
-    ne4 = tn.classify_values4(v)
-    before = band.copy()
-    packed, big = tn.pack_band4(band, ne4 + 16)
-    twin, big_twin = tn.pack_band4_plain(band)
-    jax, big_jax = jnative.pack_band4(band, ne4 + 16)
-    np.testing.assert_array_equal(band, before)   # input untouched
-    np.testing.assert_array_equal(packed, twin)
-    np.testing.assert_array_equal(packed, jax)
-    assert _as_set(big) == _as_set(big_twin) == _as_set(big_jax)
-    assert len(big[0]) > 0 and packed.shape == (rows, Dl // 2)
-    out = np.empty_like(packed)
-    again, _ = tn.pack_band4(band, ne4 + 16, out=out)
-    assert again is out and np.array_equal(out, packed)
+    cap = tn.classify_values(v)[2] + 16
+    jax = np.zeros((rows, Dl), np.uint8)
+    exc_jax = jnative.fill_band_compact(x, y, v, jax, cap)
+    jax, big_jax = jnative.pack_band4(jax, cap)
+    exc_jax = tuple(np.concatenate([a, b]) for a, b in zip(exc_jax, big_jax))
+    half = rows // 2
+    for g0, g1 in ((0, rows), (0, half), (half, rows)):
+        packed, twin_exc = _packed_twin(x, y, v, g0, g1, Dl)
+        if (g0, g1) == (0, rows):
+            np.testing.assert_array_equal(packed, jax)
+            assert _as_set(twin_exc) == _as_set(exc_jax)
+        for scan in (False, True):
+            out = np.full((g1 - g0, Dl // 2), 0xAB, np.uint8)
+            if (g0, g1) == (0, rows):
+                exc = tn.fill_band_compact(x, y, v, out, cap, scan=scan,
+                                           packed4=True)
+            else:
+                exc = tn.fill_band_compact_range(x, y, v, out, g0, g1, cap,
+                                                 scan=scan, packed4=True)
+            np.testing.assert_array_equal(out, packed)
+            assert _as_set(exc) == _as_set(twin_exc)
+            assert [a.dtype for a in exc] == [np.int32, np.int32, np.float32]
+    assert any(16 <= e < 256 for e in exc_jax[2])
 
 
 @pytest.mark.parametrize("vdtype", [np.float64, np.float32])
@@ -152,11 +184,17 @@ def test_fill_band_f32_and_u16(vdtype):
 
 def test_fill_counts_and_rejects_bad_buffers():
     x, y, v = _coo(40, 16, seed=7)
-    before = tn.FILLS
+    before, before4 = tn.FILLS, tn.FILLS4
     tn.fill_band_compact(x, y, v, np.zeros((40, 16), np.uint8), 32)
-    assert tn.FILLS == before + 1
+    assert (tn.FILLS, tn.FILLS4) == (before + 1, before4)
+    tn.fill_band_compact(x, y, v, np.zeros((40, 8), np.uint8), 32,
+                         packed4=True)
+    assert (tn.FILLS, tn.FILLS4) == (before + 2, before4 + 1)
     with pytest.raises(TypeError):
         tn.fill_band_compact(x, y, v, np.zeros((40, 16), np.float32), 32)
+    with pytest.raises(TypeError):
+        tn.fill_band_compact(x, y, v, np.zeros((40, 8), np.uint16), 32,
+                             packed4=True)
     with pytest.raises(TypeError):
         tn.fill_band(x, y, v, np.zeros((16, 40), np.float32).T)
     with pytest.raises(ValueError):
@@ -286,9 +324,49 @@ def test_threaded_compact_fills_match_twins(case, threads):
         assert _exc_bits(exc) == _exc_bits(
             tn.fill_band_compact_plain(x, y, v, twin))
         np.testing.assert_array_equal(band, twin)
-        assert counts == tn.classify_values_plain(v) == tn.classify_values(v)
+        assert counts == tn.classify_values_plain(v) \
+            == tn.classify_values(v)[:2]
     else:
         assert not band.any()
+
+
+@pytest.mark.parametrize("threads", [1, 3, 8])
+@pytest.mark.parametrize("case", BIG_CASES)
+def test_threaded_u4_fill_matches_twins(case, threads):
+    """The u4 fill's row-range walk against the u8 twin and the nibble
+    pack, packed band bit for bit and the exceptions as a set, for the
+    whole band and both halves of the streamed upload's row window, into
+    outputs that do not come zeroed; where the walk declines (as the u8
+    fill does) the output is untouched or zeroed and ``scan=True`` fills
+    it. The one-pass census equals both twins' counts."""
+    x, y, v = _big_coo(case)
+    declines = case == "mixed" or (
+        case in ("unsorted", "nearly_sorted") and threads > 1)
+    ne8, ne16, ne4 = tn.classify_values(v, n_threads=threads)
+    assert (ne8, ne16) == tn.classify_values_plain(v)
+    assert ne4 == tn.classify_values4_plain(v)
+    half = BIG_ROWS // 2
+    for g0, g1 in ((0, BIG_ROWS), (0, half), (half, BIG_ROWS)):
+        packed, twin_exc = _packed_twin(x, y, v, g0, g1, BIG_DL)
+        if (g0, g1) == (0, BIG_ROWS):
+            def fill(b, **kw):
+                return tn.fill_band_compact(x, y, v, b, ne4 + 16,
+                                            n_threads=threads, packed4=True,
+                                            **kw)
+        else:
+            def fill(b, **kw):
+                return tn.fill_band_compact_range(
+                    x, y, v, b, g0, g1, ne4 + 16, n_threads=threads,
+                    packed4=True, **kw)
+        out = np.full(packed.shape, 0xAB, np.uint8)
+        exc = fill(out)
+        assert (exc is None) == declines
+        if exc is None:
+            assert (out == 0xAB).all() or not out.any()
+            out[:] = 0xAB
+            exc = fill(out, scan=True)
+        np.testing.assert_array_equal(out, packed)
+        assert _exc_bits(exc) == _exc_bits(twin_exc)
 
 
 @pytest.mark.parametrize("threads", [1, 8])
@@ -356,7 +434,7 @@ def test_other_orders_are_refused_before_any_write(order):
     """A COO in another order (a random one, or a ``.hic`` file's: blocks
     of 128 rows, each by column and then row) is refused from the rows
     of evenly spaced entries, before any thread writes: a band that
-    holds something keeps it."""
+    holds something keeps it, the u4 band and slab as the u8 band."""
     x, y, v = _big_coo("sorted")
     if order == "permuted":
         perm = np.random.default_rng(3).permutation(len(x))
@@ -367,3 +445,9 @@ def test_other_orders_are_refused_before_any_write(order):
     assert tn.fill_band_compact(x, y, v, band, len(v)) is None
     assert tn.fill_band_u8_census(x, y, v, band) is None
     assert (band == 7).all()
+    packed = np.full((BIG_ROWS, BIG_DL // 2), 7, np.uint8)
+    assert tn.fill_band_compact(x, y, v, packed, len(v), packed4=True) \
+        is None
+    assert tn.fill_band_compact_range(x, y, v, packed[:100], 100, 200,
+                                      len(v), packed4=True) is None
+    assert (packed == 7).all()

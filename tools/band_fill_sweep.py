@@ -72,7 +72,7 @@ def main(argv=None) -> int:
     width = 2000
     n = int(max(x.max(), y.max())) + 1
     shape = (bucket_rows(max(n, width)), band_width(width, d_px))
-    ne8, ne16 = native.classify_values(v)
+    ne8, ne16, _ = native.classify_values(v)
     band = np.zeros(shape, np.uint8)
 
     def fill(k):
